@@ -1,0 +1,22 @@
+"""distributedvolunteercomputing_tpu_torch — the PyTorch/CUDA port of the
+volunteer training framework.
+
+The JAX package ``distributedvolunteercomputing_tpu`` beside it is the
+reference: every module here computes what its JAX counterpart computes, and
+the tests hold the two against each other on the same inputs. This package
+imports ``torch`` and never ``jax`` (nor anything of the JAX package).
+
+Ported so far (the local train step of one volunteer):
+
+    training   Trainer (local loop), train/eval steps, optax-semantics optimizers
+    models     gpt2_small / gpt2_medium / gpt2_large over a dict-of-tensors tree
+    ops        attention router + hand-written CUDA flash attention (fwd, dq, dkv)
+    utils      device/dtype resolution, flat-buffer pytree serde, logging
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``; without
+a card and without that argument they raise.
+"""
+
+from distributedvolunteercomputing_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

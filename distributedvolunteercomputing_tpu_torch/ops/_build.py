@@ -1,0 +1,103 @@
+"""Build the port's CUDA kernels with nvcc at first use and bind them with ctypes.
+
+The sources under ``csrc/`` are compiled into one shared library with a plain
+C interface, in ``build/torch_kernels/<hash of the sources>/`` beside the
+package, so a changed source never loads a stale library. nvcc is found on
+``PATH`` or under ``$CUDA_HOME`` (default ``/usr/local/cuda``). A missing
+nvcc or a failed build raises with the compiler's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCES = (_PKG / "csrc" / "flash_attention.cu",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills per kernel, kept in the build log
+)
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_info: Dict[str, Any] = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_F = ctypes.c_float
+# (dtype, d, *pointers, *(b, h, t) strides per tensor, B, H, Tq, Tk, scale, causal, stream)
+_SIGNATURES = {
+    "dvc_flash_fwd": [_I, _I] + [_P] * 5 + [_L] * 12 + [_I] * 4 + [_F, _I, _P],
+    "dvc_flash_dq": [_I, _I] + [_P] * 7 + [_L] * 15 + [_I] * 4 + [_F, _I, _P],
+    "dvc_flash_dkv": [_I, _I] + [_P] * 8 + [_L] * 18 + [_I] * 4 + [_F, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME; cannot build the CUDA kernels")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return _PKG.parent / "build" / "torch_kernels" / source_hash() / "libdvc_torch_kernels.so"
+
+
+def _compile(out: Path) -> None:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
+        )
+    os.replace(tmp, out)
+    build_info.update(
+        seconds=time.perf_counter() - t0, log=proc.stderr + proc.stdout, command=" ".join(cmd)
+    )
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call (once per process)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _compile(path)
+            else:
+                build_info.setdefault("seconds", 0.0)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.dvc_error_string.argtypes = [_I]
+            lib.dvc_error_string.restype = ctypes.c_char_p
+            build_info["path"] = str(path)
+            _lib = lib
+        return _lib

@@ -1,0 +1,124 @@
+"""The port's flash attention (plain versions of K1-K3 on the CPU) against the
+JAX package's Pallas kernels in interpret mode, and the port's router.
+
+Same inputs on both sides (numpy, seeded); f32; block 16 on the JAX side so
+its online softmax walks several blocks and pads T=40. Tolerances are the
+reference's own flash-vs-XLA ones (tests/test_pallas_attention.py): 2e-5 for
+the forward, 5e-5 for the grads.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributedvolunteercomputing_tpu.ops import pallas_attention as jax_flash
+from distributedvolunteercomputing_tpu_torch.ops import attention as port_attn
+from distributedvolunteercomputing_tpu_torch.ops import flash_attention as port_flash
+
+B, H, T, D = 2, 2, 40, 16
+
+
+def _inputs(seed, n=3, t=T):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, H, t, D)).astype(np.float32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_and_lse_match_pallas(causal):
+    q, k, v = _inputs(0)
+    o_ref, lse_ref = jax_flash._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, 16, 16, True
+    )
+    o, lse = port_flash.flash_fwd_plain(*map(torch.from_numpy, (q, k, v)), causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=2e-5, rtol=2e-5)
+
+
+def test_grads_match_pallas_vjp():
+    # Causal: the flagship path. One vjp = one forward + the dq and dkv kernels.
+    q, k, v, cot = _inputs(1, n=4)
+    _, vjp = jax.vjp(
+        lambda a, b, c: jax_flash.flash_attention(a, b, c, True, 16, 16, True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    )
+    g_ref = vjp(jnp.asarray(cot))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = port_flash.flash_attention(qt, kt, vt, True)
+    grads = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(cot))
+    for name, a, b in zip(("dq", "dk", "dv"), grads, g_ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-5, rtol=5e-5, err_msg=name)
+
+
+def test_plain_versions_round_like_the_kernels_in_bf16():
+    # bf16 inputs: P and dS are rounded to bf16 before their products, and
+    # the outputs come back in bf16 — close to the f32 result, not equal.
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(2, n=4))
+    o32, lse32 = port_flash.flash_fwd_plain(q, k, v, True)
+    qb, kb, vb, dob = (x.bfloat16() for x in (q, k, v, do))
+    o16, lse16 = port_flash.flash_fwd_plain(qb, kb, vb, True)
+    assert o16.dtype == torch.bfloat16 and lse16.dtype == torch.float32
+    np.testing.assert_allclose(o16.float().numpy(), o32.numpy(), atol=3e-2, rtol=3e-2)
+    delta = (dob.float() * o16.float()).sum(-1)
+    dk, dv = port_flash.flash_dkv_plain(qb, kb, vb, dob, lse16, delta, True)
+    assert dk.dtype == dv.dtype == torch.bfloat16
+
+
+def test_router():
+    q, k = (torch.zeros(1, 2, t, 64) for t in (16, 48))
+    try:
+        port_attn.set_attention_impl("flash")
+        assert port_attn._route_to_flash(q, q, True, None)
+        assert not port_attn._route_to_flash(q, k, True, None)  # rectangular causal
+        assert port_attn._route_to_flash(q, k, False, None)
+        assert not port_attn._route_to_flash(q, q, True, torch.ones(1, 1, 16, 16, dtype=torch.bool))
+        port_attn.set_attention_impl("auto")
+        assert not port_attn._route_to_flash(q, q, True, None)  # auto: the kernels are CUDA-only
+        port_attn.set_attention_impl("xla")
+        assert not port_attn._route_to_flash(q, q, True, None)
+    finally:
+        port_attn.set_attention_impl("auto")
+    with pytest.raises(ValueError):
+        port_attn.set_attention_impl("pallas")
+
+
+def test_environment_does_not_pick_the_impl(monkeypatch):
+    # The reference reads DVC_ATTN_IMPL; the port does not, so an inherited
+    # variable cannot take the main path off the kernels.
+    import importlib
+
+    monkeypatch.setenv("DVC_ATTN_IMPL", "xla")
+    importlib.reload(port_attn)
+    assert port_attn._impl == "auto"
+
+
+def test_rectangular_causal_takes_the_plain_core():
+    # Under "flash", Tq != Tk causal must still be bottom-right aligned like
+    # the reference's XLA core.
+    from distributedvolunteercomputing_tpu.ops.attention import attention_core as jax_core
+
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((B, H, 16, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, H, 48, D)).astype(np.float32) for _ in range(2))
+    ref = jax_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)
+    try:
+        port_attn.set_attention_impl("flash")
+        out = port_attn.attention_core(*map(torch.from_numpy, (q, k, v)), causal=True)
+    finally:
+        port_attn.set_attention_impl("auto")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5)
+
+
+def test_wrappers_launch_or_raise():
+    # A tensor that is neither on the CPU nor on the card never reaches a
+    # plain version: the wrapper raises.
+    q = torch.empty(1, 1, 8, 64, device="meta")
+    before = dict(port_flash.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        port_flash.flash_fwd(q, q, q, True)
+    assert port_flash.LAUNCHES == before
+    # CPU tensors take the plain version and count no launch.
+    x = torch.randn(1, 1, 8, 64)
+    port_flash.flash_fwd(x, x, x, True)
+    assert port_flash.LAUNCHES == before

@@ -1,0 +1,85 @@
+"""The PyTorch port stands alone: it loads no jax, optax, orbax or module of
+the JAX package, and its entry points never fall back to the CPU silently."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "distributedvolunteercomputing_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "distributedvolunteercomputing_tpu")
+
+
+def _port_modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts), path
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in FORBIDDEN
+
+
+def test_import_loads_no_jax():
+    # A subprocess: tests/conftest.py has already imported the JAX package here.
+    mods = [m for m, _ in _port_modules()]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=120, check=True,
+    )
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    leaked = [m for m in loaded if _forbidden(m)]
+    assert not leaked, f"port imports pulled in {leaked[:10]}"
+
+
+SCRIPTS = [REPO / "chip_smoke.py", REPO / "experiments" / "torch_step_profile.py"]
+
+
+@pytest.mark.parametrize("path", SCRIPTS + [p for _, p in _port_modules()], ids=lambda p: p.name)
+def test_sources_import_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.append(node.module)
+    bad = [n for n in names if _forbidden(n)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_trainer_without_device_needs_a_card():
+    from distributedvolunteercomputing_tpu_torch.models import get_model
+    from distributedvolunteercomputing_tpu_torch.training.trainer import Trainer
+
+    bundle = get_model("gpt2_small", n_layers=1, d_model=64, n_heads=1, d_ff=64, vocab=64, max_len=16)
+    if torch.cuda.is_available():
+        assert Trainer(bundle, batch_size=2).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Trainer(bundle, batch_size=2)
+    assert Trainer(bundle, batch_size=2, device="cpu").device.type == "cpu"
+
+
+def test_unported_models_say_so():
+    from distributedvolunteercomputing_tpu_torch.models import get_model
+
+    with pytest.raises(KeyError, match="not ported"):
+        get_model("bert_mlm")
+    with pytest.raises(KeyError, match="unknown model"):
+        get_model("no_such_model")
