@@ -18,7 +18,30 @@ Phases, each printing one JSON line:
             24 K1 / 12 K2 / 12 K3 per step; then one fwd/bwd through the kernels
             and through the plain attention core on the same batch and on params
             whose attention is far from uniform, with the loss and every
-            gradient leaf compared (``PARITY_TOL``).
+            gradient leaf compared (``PARITY_TOL``);
+5. codec    the bf16 wire kernels (K4 encode, K5 decode-axpy) against their
+            plain versions at n = 124,439,808 (gpt2_small's flat buffer),
+            524,289 and 1000, with special values (±0, ±inf, NaN of both
+            signs and with payloads, subnormals, the largest finite value,
+            values that round up to inf): K4 bit-equal on every lane, K5
+            within ``CODEC_TOL``; kernel / plain / library times, the bound,
+            and the wall time of one ``MeshCodec.encode_bf16`` (numpy in and
+            out) at the flagship n;
+6. averaging two ``Volunteer``s in this process share the card and train
+            gpt2_small at full width, averaging every 2 steps in blocking
+            sync rounds over localhost TCP on the bf16 wire (``AVG_OVERLAP``
+            says why not overlapped). Each volunteer stops after its current
+            step, as on SIGTERM, once ``AVG_COMMITS`` rounds have committed,
+            with ``AVG_MAX_STEPS`` as the cap: the run ends on a count of
+            committed rounds, whatever the host's speed. Checked: at least
+            2 committed rounds on each and none degraded (a round one
+            volunteer runs alone is skipped, and allowed), at least one
+            contribution streamed through the leader's device folder, every
+            codec op on the card (no host op), K4/K5 launch counts equal to
+            the counts the groups formed and the committed rounds imply
+            (``expected_codec_launches``), one streamed round's results
+            within ``AVG_TOL`` of the weighted mean of the two payloads, and
+            finite losses.
 
 Then one line listing every kernel, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure raises: the script
@@ -27,6 +50,8 @@ exits non-zero and prints no ``ok`` line. It needs one card and no network.
 
 from __future__ import annotations
 
+import asyncio
+import collections
 import dataclasses
 import json
 import math
@@ -71,6 +96,24 @@ KERNELS = {  # name -> (TPU kernel it replaces, what it computes)
     "flash_dkv": ("distributedvolunteercomputing_tpu/ops/pallas_attention.py:240", "K3"),
 }
 SOURCE = "distributedvolunteercomputing_tpu_torch/csrc/flash_attention.cu"
+CODEC_SOURCE = "distributedvolunteercomputing_tpu_torch/csrc/bf16_codec.cu"
+CODEC_KERNELS = {  # name -> (TPU kernel it replaces, id)
+    "bf16_encode": ("distributedvolunteercomputing_tpu/ops/mesh_codec.py:137", "K4"),
+    "bf16_decode_axpy": ("distributedvolunteercomputing_tpu/ops/mesh_codec.py:145", "K5"),
+}
+FLAT_N = 124_439_808  # gpt2_small's parameters, the averaged flat buffer
+CHUNK_N = (1 << 20) // 2  # one 1 MiB bf16 wire chunk: what one K5 launch folds
+CODEC_SIZES = (FLAT_N, 524_289, 1000)
+# K5 against its plain version: the reference's own limit for the fold
+# (tests/test_mesh_codec.py); both sides round the product and the sum once,
+# so they are expected to agree bit for bit.
+CODEC_TOL = {"rtol": 1e-5, "atol": 1e-6}
+# Averaged values on the card. The leader's result is the f32 weighted mean of
+# the two bf16-rounded contributions: within one bf16 rounding (unit roundoff
+# 2^-8) of max(|x0|, |x1|) of the exact mean, plus an f32 floor (a few f32
+# ulps of the same scale, and the smallest normal). The member fetches that
+# result over the bf16 wire: within one bf16 rounding of the leader's.
+AVG_TOL = {"bf16_u": 2.0**-8, "f32_ulps": 4 * 2.0**-24, "floor": 2.0**-126}
 # Published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s, f32 FLOP/s.
 PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12), "H100": (3.35e12, 989e12, 67e12)}
 
@@ -355,6 +398,414 @@ def parity_phase(bundle, trainer) -> None:
         raise AssertionError(f"full-width train step through the kernels disagrees with the plain core: {failures}")
 
 
+# ---------------------------------------------------------------------------
+# codec: K4 / K5 against their plain versions
+# ---------------------------------------------------------------------------
+
+SPECIAL_BITS = (
+    0x00000000, 0x80000000, 0x7F800000, 0xFF800000,  # ±0, ±inf
+    0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001,  # NaN of both signs
+    0x7FFFFFFF, 0xFFFFFFFF, 0x7FA00000,  # NaN with payload bits
+    0x00000001, 0x807FFFFF, 0x00008000, 0x00018000, 0x00017FFF,  # subnormals (ties too)
+    0x7F7FFFFF, 0xFF7FFFFF, 0x7F7F8000, 0x7F7F7FFF,  # max finite, -> inf, stays finite
+    0x3F808000, 0x3F818000,  # ties to even
+)
+
+
+def codec_inputs(n: int, gen: torch.Generator):
+    """(x f32 [n], acc f32 [n]) on the card: normal values at a spread of
+    scales, the special values first, random bit patterns (every exponent,
+    NaNs included) in the first 64 Ki lanes."""
+    import numpy as np
+
+    x = torch.randn(n, generator=gen, device="cuda") * torch.exp2(
+        torch.randint(-40, 40, (n,), generator=gen, device="cuda").float()
+    )
+    k = min(n, 1 << 16)
+    rand_bits = torch.randint(-(2**31), 2**31, (k,), generator=gen, device="cuda", dtype=torch.int64)
+    x[:k] = rand_bits.to(torch.int32).view(torch.float32)
+    special = torch.from_numpy(np.array(SPECIAL_BITS, np.uint32).view(np.int32)).cuda().view(torch.float32)
+    m = min(n, special.numel())
+    x[:m] = special[:m]
+    acc = torch.randn(n, generator=gen, device="cuda")
+    return x, acc
+
+
+def time_cold_ms(fn_for, n_sets: int, iters: int = 20) -> float:
+    """Median per-call time cycling over ``n_sets`` input sets whose total
+    exceeds the 50 MB L2, so each call finds its inputs in device memory as
+    the main path does."""
+    for i in range(n_sets):
+        fn_for(i)
+    torch.cuda.synchronize()
+    times = []
+    for it in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn_for(it % n_sets)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_device_ms(fn_for, n_sets: int, reps: int = 64, trials: int = 5) -> float:
+    """Device time per call of back-to-back launches: the stream is held by
+    a spin kernel while ``reps`` calls are enqueued, so the events bracket
+    device work only, not the host's launch gaps (a 1.6 us kernel launched
+    from Python is otherwise timed at the host's launch rate). Calls cycle
+    over ``n_sets`` input sets larger than the L2 together. Median of
+    ``trials``."""
+    for i in range(n_sets):
+        fn_for(i)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # ~10 ms of spinning: enough to enqueue every call
+        start.record()
+        for i in range(reps):
+            fn_for(i % n_sets)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def codec_phase(peak) -> dict:
+    import numpy as np
+
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+
+    mem_rate, _, f32_rate = peak
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    w = 0.37
+    results = {}
+    for n in CODEC_SIZES:
+        x, acc = codec_inputs(n, gen)
+        bits_k, bits_p = mc.bf16_encode(x), mc.encode_bf16_plain(x)
+        torch.cuda.synchronize()
+        bad = (bits_k != bits_p).sum().item()
+        enc_err = (bits_k.int() - bits_p.int()).abs().max().item()
+        fold_k, fold_p = mc.bf16_decode_axpy(acc, bits_p, w), mc.decode_axpy_plain(acc, bits_p, w)
+        torch.cuda.synchronize()
+        # Finite lanes within CODEC_TOL; inf and NaN lanes (from inf / NaN
+        # bits) must match exactly.
+        fin = torch.isfinite(fold_p)
+        same = (fold_k == fold_p) | (torch.isnan(fold_k) & torch.isnan(fold_p))
+        fold_err = (fold_k[fin] - fold_p[fin]).abs()
+        fold_used = (fold_err / (CODEC_TOL["atol"] + CODEC_TOL["rtol"] * fold_p[fin].abs())).max().item()
+        row = {
+            "phase": "codec", "n": n, "encode_lanes_differing": bad, "encode_max_abs_err": enc_err,
+            "nan_lanes": int(torch.isnan(x).sum().item()), "nonfinite_fold_lanes": int((~fin).sum().item()),
+            "fold_max_abs_err": fold_err.max().item(), "fold_limit_used": fold_used,
+            "fold_nonfinite_lanes_match": bool(same[~fin].all().item()), "fold_tol": CODEC_TOL,
+        }
+        if bad or enc_err or not fold_used <= 1.0 or not row["fold_nonfinite_lanes_match"]:
+            emit(row)
+            raise AssertionError(f"codec kernels disagree with their plain versions at n={n}")
+        # In place, as the folder calls it.
+        inplace = acc.clone()
+        mc.bf16_decode_axpy(inplace, bits_p, w, out=inplace)
+        torch.cuda.synchronize()
+        if not bool(((inplace == fold_k) | (torch.isnan(inplace) & torch.isnan(fold_k))).all().item()):
+            raise AssertionError(f"in-place K5 differs from out-of-place at n={n}")
+        if n == FLAT_N:
+            # K4 at the flagship n (the contribution and result encodes).
+            enc_bytes = 6 * n
+            row["K4"] = {
+                "n": n, "ms": time_ms(lambda: mc.bf16_encode(x)),
+                "plain_ms": time_ms(lambda: mc.encode_bf16_plain(x), iters=5),
+                "library_ms": time_ms(lambda: x.to(torch.bfloat16).view(torch.int16)),
+                "library_call": "x.to(torch.bfloat16).view(torch.int16) (NaN bits differ: 0xffff)",
+                "bytes": enc_bytes, "flops": 0,
+                "bound_ms": enc_bytes / mem_rate * 1e3, "bound_by": "bytes",
+            }
+            # K5 over the whole buffer, and per 1 MiB chunk (one launch of the
+            # folder), cycling over enough chunks to leave the L2.
+            fold_bytes, fold_flops = 10 * n, 2 * n
+            whole = {
+                "n": n, "ms": time_ms(lambda: mc.bf16_decode_axpy(acc, bits_p, w)),
+                "plain_ms": time_ms(lambda: mc.decode_axpy_plain(acc, bits_p, w), iters=5),
+                "library_ms": time_ms(lambda: torch.add(acc, bits_p.view(torch.bfloat16), alpha=w)),
+                "bytes": fold_bytes, "flops": fold_flops,
+                "bound_ms": max(fold_bytes / mem_rate, fold_flops / f32_rate) * 1e3,
+            }
+            sets = 16  # 16 x 5.24 MB = 84 MB > L2
+            views = [(acc[i * CHUNK_N : (i + 1) * CHUNK_N], bits_p[i * CHUNK_N : (i + 1) * CHUNK_N])
+                     for i in range(sets)]
+            cb, cf = 10 * CHUNK_N, 2 * CHUNK_N
+            chunk = {
+                "n": CHUNK_N,
+                "ms": time_device_ms(lambda i: mc.bf16_decode_axpy(views[i][0], views[i][1], w), sets),
+                "plain_ms": time_device_ms(lambda i: mc.decode_axpy_plain(views[i][0], views[i][1], w), sets),
+                "library_ms": time_device_ms(
+                    lambda i: torch.add(views[i][0], views[i][1].view(torch.bfloat16), alpha=w), sets
+                ),
+                # One launch as the folder makes it, host launch gap included.
+                "single_launch_ms": time_cold_ms(lambda i: mc.bf16_decode_axpy(views[i][0], views[i][1], w), sets),
+                "library_call": "torch.add(acc, bits.view(torch.bfloat16), alpha=w)",
+                "bytes": cb, "flops": cf, "bound_ms": max(cb / mem_rate, cf / f32_rate) * 1e3,
+                "bound_by": "bytes" if cb / mem_rate >= cf / f32_rate else "operations",
+            }
+            row["K5"] = {"chunk": chunk, "whole_buffer": whole}
+            # One encode as the averager calls it: numpy in, numpy out.
+            codec = mc.MeshCodec(device="cuda")
+            host = x.cpu().numpy()
+            codec.encode_bf16(host)
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = codec.encode_bf16(host)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(out, bits_p.cpu().numpy().view(np.uint16)):
+                raise AssertionError("MeshCodec.encode_bf16 differs from the plain encode")
+            row["encode_bf16_wall_ms"] = statistics.median(walls)
+            row["encode_bf16_wall_ms_all"] = walls
+            results = row
+        emit(row)
+        del x, acc, bits_k, bits_p, fold_k, fold_p
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# averaging: two full-width volunteers, sync rounds on the bf16 wire
+# ---------------------------------------------------------------------------
+
+AVG_COMMITS = 3  # committed rounds after which each volunteer stops: round 1 parks dense, later ones stream
+AVG_MAX_STEPS = 400  # cap on each trainer's steps, far above what 3 commits take
+AVG_EVERY = 2
+# Blocking rounds. With overlap, the two trainers drift apart (the leader's
+# host also folds, so it steps more slowly) and nothing brings them
+# back into phase: a member still fetching parks the leader's next begin
+# past its 3 s TTL, both then lead lone rounds that wait out the gather
+# deadline, and one full-width run committed 2 of 11 rounds. Blocking
+# rounds meet at each cadence step. The overlapped merge is held to the
+# reference's on the CPU (tests/test_torch_trainer_avg.py).
+AVG_OVERLAP = False
+
+
+def expected_codec_launches(groups_formed: int, committed_rounds: int, streamed_contribs: int) -> dict:
+    """Launches the round protocol implies for two volunteers sharing the
+    card (``swarm/averager.py``, ``swarm/agg_stream.py``, health probe on),
+    from what is known without the codec: the groups matchmaking formed
+    (counted where ``_form_group`` returns) and the rounds that committed.
+
+    K4: every round whose group formed packs its contribution once (a round
+    that forms no group returns before the pack; a group can hold one
+    volunteer alone, whose round is then skipped at the gather deadline),
+    and each pack encodes
+    twice — the 64 Ki-slice health probe (``_note_codec_distortion``) and the
+    whole buffer: the leader's own contribution as peers see it
+    (``_wire_roundtrip``), or the member's push (``_wire_stream``, one
+    whole-buffer encode on an active codec). Each committed round of two has
+    one member, whose fetch the leader encodes once (``_wire_stream`` of
+    ``st.result``); a skipped round has no result to encode.
+    K5: one per 1 MiB chunk of every contribution that streamed into the
+    leader's folder (``MeshMeanFolder._flush_dev``). Round 1 parks the
+    member's push dense (the leader arms after its first pack); dense feeds
+    are plain ``add_``."""
+    chunks = -(-FLAT_N * 2 // (1 << 20))
+    return {
+        "bf16_encode": 2 * groups_formed + committed_rounds,
+        "bf16_decode_axpy": chunks * streamed_contribs,
+    }
+
+
+def averaging_phase() -> dict:
+    import numpy as np
+
+    from distributedvolunteercomputing_tpu_torch import native
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+    from distributedvolunteercomputing_tpu_torch.swarm.volunteer import Volunteer, VolunteerConfig
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer
+
+    if not native.ensure_built():
+        raise RuntimeError("the host codec's C++ core did not build")
+    out_dir = HERE / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    records = [collections.deque(maxlen=2), collections.deque(maxlen=2)]
+    round_launches = [0, 0]
+    groups_formed = [0, 0]
+    committed = [0, 0]
+
+    def recording(vol, i):
+        """Wrap the volunteer's averager callback: once ``AVG_COMMITS``
+        rounds have committed, stop the volunteer after its current step and
+        launch no more rounds; keep (payload, weight, result, led a streamed
+        round) of its last two committed rounds. Every committed round has
+        both volunteers in it, so the k-th committed round of one is the k-th
+        of the other. Also count the groups matchmaking forms for it (each is
+        one pack)."""
+        inner = vol._averager_callback
+
+        def cb(params, step):
+            if committed[i] >= AVG_COMMITS:
+                return None  # launched in the step that saw the last round end
+            round_launches[i] += 1
+            gauges = vol.averager._agg_gauges
+            before = gauges.get("streamed_contribs", 0)
+            weight = vol.cfg.batch_size * max(1, vol.trainer.steps_since_merge)
+            result = inner(params, step)
+            led_streamed = gauges.get("streamed_contribs", 0) > before
+            if result is not None:
+                committed[i] += 1
+                records[i].append({
+                    "round": committed[i], "step": step, "weight": weight,
+                    "payload": flatten_to_buffer(params)[0], "result": flatten_to_buffer(result)[0],
+                    "led_streamed": led_streamed,
+                })
+            if committed[i] >= AVG_COMMITS:
+                vol._stop.set()  # as on SIGTERM: the trainer ends after this step
+            return result
+
+        form_group = vol.averager._form_group
+
+        async def counted_form_group(round_key):
+            group = await form_group(round_key)
+            if group is not None:
+                groups_formed[i] += 1
+            return group
+
+        vol.averager._form_group = counted_form_group
+
+        vol.trainer.averager = cb
+        return vol
+
+    async def run_pair():
+        base = dict(model="gpt2_small", batch_size=8, averaging="sync", wire="bf16",
+                    average_every=AVG_EVERY, overlap=AVG_OVERLAP, steps=AVG_MAX_STEPS)
+        paths = [out_dir / f"volunteer{i}.jsonl" for i in range(2)]
+        for p in paths:
+            p.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        v0 = Volunteer(VolunteerConfig(peer_id="vol0", seed=1, metrics_path=str(paths[0]), **base))
+        await v0.start()
+        v1 = Volunteer(VolunteerConfig(peer_id="vol1", seed=2, metrics_path=str(paths[1]),
+                                       bootstrap="%s:%d" % v0.transport.addr, **base))
+        await v1.start()
+        start_s = time.perf_counter() - t0
+        recording(v0, 0), recording(v1, 1)
+        torch.cuda.synchronize()
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            # Both leave only after both have trained: a leader that leaves
+            # at once would strand the member's fetch of the last round.
+            # stop() alone ends membership; the round cap only ends training.
+            summaries = await asyncio.gather(v0.train(), v1.train())
+        finally:
+            await asyncio.gather(v0.stop(), v1.stop())
+        torch.cuda.synchronize()
+        launches = {**dict(mc.LAUNCHES), **flash_launches()}
+        return summaries, launches, start_s, time.perf_counter() - t0, paths
+
+    summaries, launches, start_s, run_s, paths = asyncio.run(run_pair())
+    events = [[json.loads(line) for line in p.read_text().splitlines()] for p in paths]
+    losses = [[e["loss"] for e in ev if "loss" in e] for ev in events]
+    rounds_s = [[e.get("avg_s") for e in ev if e.get("event") == "avg_round" and e.get("ok")] for ev in events]
+    agg = [s.get("aggregation", {}) for s in summaries]
+    codec_stats = summaries[0]["mesh_codec"]
+    rounds = [s["rounds_ok"] for s in summaries]
+    streamed = sum(a.get("streamed_contribs", 0) for a in agg)
+    spans = [s["telemetry"]["spans"] for s in summaries]
+    packs = sum(sp.get("encode", {}).get("count", 0) for sp in spans)
+    fetches = sum(sp.get("fetch", {}).get("count", 0) for sp in spans)
+    expect = expected_codec_launches(sum(groups_formed), rounds[0], streamed)
+    row = {
+        "phase": "averaging", "model": "gpt2_small", "batch_size": 8, "max_steps": AVG_MAX_STEPS,
+        "commits": AVG_COMMITS, "steps": [s["steps"] for s in summaries],
+        "average_every": AVG_EVERY, "overlap": AVG_OVERLAP, "wire": "bf16",
+        "start_s": start_s, "run_s": run_s, "rounds_ok": rounds,
+        "rounds_skipped": [s["rounds_skipped"] for s in summaries],
+        "rounds_degraded": [s["rounds_degraded"] for s in summaries],
+        "round_s": rounds_s, "losses": losses, "final_loss": [s["final_loss"] for s in summaries],
+        "aggregation": agg, "mesh_codec": codec_stats, "hedge": [s.get("hedge") for s in summaries],
+        "wan_bytes_sent": [s["wan_bytes_sent"] for s in summaries],
+        "round_launches": round_launches, "groups_formed": groups_formed, "packs": packs, "fetches": fetches, "streamed_contribs": streamed,
+        "spans": spans,  # per volunteer: round phases (join, encode, wire, fold, commit, fetch), count and seconds
+        "launches": launches, "codec_launches_expected": expect,
+        "codec_launches_per_committed_round": {k: launches[k] / max(1, rounds[0]) for k in expect},
+    }
+    failures = []
+    # A skipped round is allowed (reported): a volunteer that forms no group,
+    # or forms one alone, skips it. Committed rounds count on both.
+    if min(rounds) < 2 or rounds[0] != rounds[1] or any(row["rounds_degraded"]):
+        failures.append(f"rounds ok {rounds}, skipped {row['rounds_skipped']}, degraded {row['rounds_degraded']}")
+    if committed != rounds:
+        failures.append(f"results returned to the trainers {committed} != rounds committed {rounds}")
+    if streamed < 1 or not any(a.get("folder_kind") == "staged" and a.get("folder_flushes", 0) > 0 for a in agg):
+        failures.append("no contribution streamed through the leader's device folder")
+    if sum(a.get("aborted_contribs", 0) + a.get("tiles_recovered", 0) + a.get("hedge_duplicates", 0)
+           for a in agg):
+        failures.append("aborted or hedged contributions: the launch counts below would not be exact")
+    if codec_stats["backend"] != "device" or codec_stats["ops_host"] != 0:
+        failures.append(f"codec not on the device path: {codec_stats}")
+    if packs != sum(groups_formed):
+        failures.append(f"{packs} packs (encode spans) != {groups_formed} groups formed")
+    if {k: launches[k] for k in expect} != expect:
+        failures.append(f"codec launches {[launches[k] for k in expect]} != expected {expect}")
+    if not all(losses) or not all(math.isfinite(x) for ls in losses for x in ls):
+        failures.append("missing or non-finite losses")
+    row["values"] = check_averaged_values(records, failures)
+    emit(row)
+    if failures:
+        raise AssertionError(f"averaging phase: {failures}")
+    return {k: launches[k] for k in CODEC_KERNELS}
+
+
+def check_averaged_values(records, failures) -> dict:
+    """One streamed round: the leader's result against the f64 weighted mean
+    of the two payloads, the member's against the leader's (``AVG_TOL``)."""
+    import numpy as np
+
+    by_round = [{r["round"]: r for r in rec} for rec in records]
+    common = sorted(set(by_round[0]) & set(by_round[1]), reverse=True)
+    for rnd in common:
+        pair = (by_round[0][rnd], by_round[1][rnd])
+        leaders = [i for i, r in enumerate(pair) if r["led_streamed"]]
+        if not leaders:
+            continue
+        lead, memb = pair[leaders[0]], pair[1 - leaders[0]]
+        x0, x1 = pair[0]["payload"].astype(np.float64), pair[1]["payload"].astype(np.float64)
+        w0, w1 = pair[0]["weight"], pair[1]["weight"]
+        want = (w0 * x0 + w1 * x1) / (w0 + w1)
+        scale = np.maximum(np.abs(x0), np.abs(x1))
+        tol = AVG_TOL
+        lim = (tol["bf16_u"] + tol["f32_ulps"]) * scale + tol["floor"]
+        err = np.abs(lead["result"] - want)
+        lr = lead["result"].astype(np.float64)
+        lim_m = tol["bf16_u"] * np.abs(lr) + tol["f32_ulps"] * np.abs(lr) + tol["floor"]
+        err_m = np.abs(memb["result"] - lr)
+        out = {
+            "round": rnd, "step": lead["step"], "weights": [w0, w1], "n": int(x0.size),
+            "leader": leaders[0], "leader_limit_used": float((err / lim).max()),
+            "leader_max_abs_err": float(err.max()), "member_limit_used": float((err_m / lim_m).max()),
+            "member_max_abs_err": float(err_m.max()), "tol": tol,
+            "finite": bool(np.isfinite(lead["result"]).all() and np.isfinite(memb["result"]).all()),
+        }
+        if not (out["finite"] and out["leader_limit_used"] <= 1.0 and out["member_limit_used"] <= 1.0):
+            failures.append(f"averaged values outside AVG_TOL: {out}")
+        return out
+    failures.append("no streamed round with both results recorded")
+    return {}
+
+
+def flash_launches() -> dict:
+    from distributedvolunteercomputing_tpu_torch.ops import flash_attention as fa
+
+    return dict(fa.LAUNCHES)
+
+
+def reset_all_launch_counts() -> None:
+    from distributedvolunteercomputing_tpu_torch.ops import flash_attention as fa
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+
+    fa.reset_launch_counts()
+    mc.reset_launch_counts()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -388,6 +839,8 @@ def main() -> int:
             check_kernels(fa, (2, h, RAGGED_T, d), dtype, causal, peak, timed=False)
 
     launches = trainer_phase(fa)
+    codec = codec_phase(peak)
+    launches.update(averaging_phase())
 
     kernels = []
     for kname, (replaces, kid) in KERNELS.items():
@@ -395,6 +848,16 @@ def main() -> int:
         kernels.append({
             "name": kname, "id": kid, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library_call": r["library_call"],
+        })
+    for kname, (replaces, kid), r, err in (
+        ("bf16_encode", CODEC_KERNELS["bf16_encode"], codec["K4"], codec["encode_max_abs_err"]),
+        ("bf16_decode_axpy", CODEC_KERNELS["bf16_decode_axpy"], codec["K5"]["chunk"], codec["fold_max_abs_err"]),
+    ):
+        kernels.append({
+            "name": kname, "id": kid, "route": "cuda", "source": CODEC_SOURCE, "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": err, "n": r["n"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_call": r["library_call"],
         })

@@ -6,11 +6,19 @@ reference: every module here computes what its JAX counterpart computes, and
 the tests hold the two against each other on the same inputs. This package
 imports ``torch`` and never ``jax`` (nor anything of the JAX package).
 
-Ported so far (the local train step of one volunteer):
+Ported so far (one volunteer's train step, and sync averaging rounds
+between volunteers on the f32 and bf16 wires):
 
-    training   Trainer (local loop), train/eval steps, optax-semantics optimizers
+    training   Trainer (local loop, blocking / overlapped averaging rounds),
+               train/eval steps, optax-semantics optimizers
     models     gpt2_small / gpt2_medium / gpt2_large over a dict-of-tensors tree
-    ops        attention router + hand-written CUDA flash attention (fwd, dq, dkv)
+    ops        attention router + hand-written CUDA flash attention (fwd, dq,
+               dkv); the bf16 wire codec and mean folder on the card, with
+               hand-written CUDA encode and decode-axpy; robust estimators
+    swarm      Volunteer, the sync averager and streaming aggregation, over
+               copies of the reference's transport, DHT, membership,
+               matchmaking and telemetry
+    native     copy of the reference's C++ host codec (built with g++ at first use)
     utils      device/dtype resolution, flat-buffer pytree serde, logging
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without

@@ -5,6 +5,7 @@ Each bundle closes over its config and exposes:
     init(gen) -> params              on ``gen.device``
     loss_fn(params, batch, rng) -> (loss, metrics)
     make_batch(gen, batch_size) -> synthetic batch on ``gen.device``
+    avg_select(params) / avg_merge(params, averaged) -> the averaged subtree
 
 Only the GPT-2 family is ported so far; other names raise ``KeyError``.
 """
@@ -23,6 +24,14 @@ Metrics = Dict[str, torch.Tensor]
 _NOT_PORTED = ("mnist_mlp", "cifar10_resnet18", "cifar10_vit", "bert_mlm", "gpt2_moe", "llama_lora")
 
 
+def _identity_select(params: Any) -> Any:
+    return params
+
+
+def _identity_merge(params: Any, averaged: Any) -> Any:
+    return averaged
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     name: str
@@ -30,6 +39,10 @@ class ModelBundle:
     init: Callable[[torch.Generator], Any]
     loss_fn: Callable[[Any, Batch, torch.Generator], Tuple[torch.Tensor, Metrics]]
     make_batch: Callable[[torch.Generator, int], Batch]
+    # What the swarm averages: the payload subtree of the params and how the
+    # averaged result merges back (identity for the GPT-2 family).
+    avg_select: Callable[[Any], Any] = _identity_select
+    avg_merge: Callable[[Any, Any], Any] = _identity_merge
 
 
 def _gpt2(preset: str, **overrides: Any) -> ModelBundle:

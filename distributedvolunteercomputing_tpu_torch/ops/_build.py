@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc at first use and bind them with ctypes.
 
-The sources under ``csrc/`` are compiled into one shared library with a plain
-C interface, in ``build/torch_kernels/<hash of the sources>/`` beside the
-package, so a changed source never loads a stale library. nvcc is found on
+The sources under ``csrc/`` are compiled in parallel (one nvcc each) and
+linked into one shared library with a plain C interface, in
+``build/torch_kernels/<hash of the sources>/`` beside the package, so a
+changed source never loads a stale library. nvcc is found on
 ``PATH`` or under ``$CUDA_HOME`` (default ``/usr/local/cuda``). A missing
 nvcc or a failed build raises with the compiler's output; nothing falls back.
 """
@@ -16,14 +17,16 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "flash_attention.cu",)
+SOURCES = (_PKG / "csrc" / "flash_attention.cu", _PKG / "csrc" / "bf16_codec.cu")
+# No --use_fast_math / -ftz: the codec kernels must round subnormals exactly.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, kept in the build log
 )
 
@@ -35,11 +38,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
-# (dtype, d, *pointers, *(b, h, t) strides per tensor, B, H, Tq, Tk, scale, causal, stream)
+# Flash attention: (dtype, d, *pointers, *(b, h, t) strides per tensor, B, H,
+# Tq, Tk, scale, causal, stream).
 _SIGNATURES = {
     "dvc_flash_fwd": [_I, _I] + [_P] * 5 + [_L] * 12 + [_I] * 4 + [_F, _I, _P],
     "dvc_flash_dq": [_I, _I] + [_P] * 7 + [_L] * 15 + [_I] * 4 + [_F, _I, _P],
     "dvc_flash_dkv": [_I, _I] + [_P] * 8 + [_L] * 18 + [_I] * 4 + [_F, _I, _P],
+    # (x, out, n, stream) and (bits, acc, out, w, n, stream)
+    "dvc_bf16_encode": [_P, _P, _L, _P],
+    "dvc_bf16_decode_axpy": [_P, _P, _P, _F, _L, _P],
 }
 
 
@@ -65,19 +72,33 @@ def library_path() -> Path:
     return _PKG.parent / "build" / "torch_kernels" / source_hash() / "libdvc_torch_kernels.so"
 
 
-def _compile(out: Path) -> None:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    t0 = time.perf_counter()
+def _run(cmd) -> subprocess.CompletedProcess:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
         )
+    return proc
+
+
+def _compile(out: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    objs = [out.parent / f"{src.stem}.{os.getpid()}.o" for src in SOURCES]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(SOURCES, objs)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        procs = list(pool.map(_run, cmds))
+    link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+    procs.append(_run(link))
     os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
     build_info.update(
-        seconds=time.perf_counter() - t0, log=proc.stderr + proc.stdout, command=" ".join(cmd)
+        seconds=time.perf_counter() - t0,
+        log="".join(p.stderr + p.stdout for p in procs),
+        command=" && ".join(" ".join(c) for c in cmds + [link]),
     )
 
 

@@ -1,28 +1,44 @@
-"""The volunteer train loop, local half (ported from
+"""The volunteer train loop (ported from
 ``distributedvolunteercomputing_tpu/training/trainer.py``).
 
-data -> device -> fwd/bwd -> local optimizer step, for one volunteer with no
-averaging: the reference's config 1 (``averager=None``). Averaging rounds,
-overlap, meshes, multi-step calls, eval and the outer optimizer come with
-later slices of the port; the constructor does not accept them yet.
+data -> device -> fwd/bwd -> local optimizer step, and every
+``average_every`` steps a params-mode averaging round through an injected
+callback: blocking (the round's result replaces the params) or overlapped
+with the next steps (Moshpit merge ``averaged + (current - snapshot)``).
+Gradient averaging, the wall-clock cadence, the outer optimizer, meshes,
+multi-step calls and eval come with later slices of the port; the
+constructor does not accept them yet.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import time
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from distributedvolunteercomputing_tpu_torch.models.registry import Batch, ModelBundle
 from distributedvolunteercomputing_tpu_torch.training.metrics import MetricsWriter
 from distributedvolunteercomputing_tpu_torch.training.optim import make_optimizer
 from distributedvolunteercomputing_tpu_torch.training.steps import TrainState, make_train_step
-from distributedvolunteercomputing_tpu_torch.utils.logging import get_logger
-from distributedvolunteercomputing_tpu_torch.utils.pytree import cast_floating
+from distributedvolunteercomputing_tpu_torch.utils.logging import errstr, get_logger
+from distributedvolunteercomputing_tpu_torch.utils.pytree import (
+    cast_floating,
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 from distributedvolunteercomputing_tpu_torch.utils.torchenv import DeviceLike, resolve_device
 
 log = get_logger(__name__)
+
+# Averager callback: takes the CURRENT host params tree (numpy leaves) and the
+# step, returns the averaged host tree (or None to keep local params, e.g.
+# when no group formed).
+AveragerFn = Callable[[Any, int], Optional[Any]]
 
 
 class Trainer:
@@ -46,11 +62,22 @@ class Trainer:
         data: Optional[Iterable[Batch]] = None,  # overrides the synthetic stream
         # The card unless "cpu" is asked for; raises when there is no card.
         device: DeviceLike = None,
+        # Params-mode averaging (local SGD): every ``average_every`` steps the
+        # host params go through ``averager``.
+        averager: Optional[AveragerFn] = None,
+        average_every: int = 10,
+        # Overlap the round with the next local steps; ``max_staleness``
+        # bounds how many steps a result may lag before it is dropped
+        # instead of merged (0 = no bound).
+        overlap: bool = False,
+        max_staleness: int = 0,
     ):
         if accum_steps < 1 or batch_size % accum_steps != 0:
             raise ValueError(
                 f"accum_steps={accum_steps} must be >=1 and divide batch_size={batch_size}"
             )
+        if average_every < 1:
+            raise ValueError(f"average_every must be >= 1, got {average_every}")
         self.device = resolve_device(device)
         self.bundle = bundle
         self.batch_size = batch_size
@@ -67,6 +94,22 @@ class Trainer:
         self._data_gen = torch.Generator().manual_seed(seed)
         self._data = data
         self.metrics = MetricsWriter(metrics_path, volunteer_id)
+        self.averager = averager
+        self.average_every = average_every
+        # Local steps behind the NEXT contribution, read by the volunteer's
+        # averager callback to weight it in samples: average_every on the
+        # happy path, more after failed rounds.
+        self.steps_since_merge: int = average_every
+        self._last_merge_step: Optional[int] = None
+        self.overlap = bool(overlap) and averager is not None
+        self.max_staleness = max_staleness
+        # One worker: rounds never overlap each other, only local compute.
+        self._avg_pool = (
+            concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="avg-round")
+            if self.overlap
+            else None
+        )
+        self._inflight: Optional[tuple] = None  # (launch_step, payload0, future)
 
     def data_iter(self) -> Iterator[Batch]:
         while True:
@@ -82,6 +125,93 @@ class Trainer:
             cross_step, "target_crossed", {"target_loss": target_loss, "wall_s": round(wall, 3)}
         )
         return (cross_step, wall)
+
+    # -- averaging (params mode) --------------------------------------------
+
+    @staticmethod
+    def _host_tree(tree: Any) -> Any:
+        """The tree as host f32 numpy leaves: one device-side concatenation
+        and ONE device-to-host copy (not one per leaf), then views."""
+        leaves, treedef = tree_flatten(tree)
+        flat = torch.cat([x.detach().reshape(-1).to(torch.float32) for x in leaves]).cpu().numpy()
+        out, off = [], 0
+        for x in leaves:
+            out.append(flat[off : off + x.numel()].reshape(tuple(x.shape)))
+            off += x.numel()
+        return tree_unflatten(treedef, out)
+
+    def _swap_params(self, new_params: Any) -> None:
+        """Copy a host tree of the full params into the live params in place
+        (the optimizer's moments keep their tensors) — the ONE place a merge
+        becomes live state, shared by the blocking and overlapped paths."""
+        with torch.no_grad():
+            for p, v in zip(tree_leaves(self.state.params), tree_leaves(new_params)):
+                p.copy_(torch.from_numpy(np.ascontiguousarray(v, np.float32)))
+
+    def _note_window_progress(self, step_no: int) -> None:
+        if self._last_merge_step is not None:
+            self.steps_since_merge = max(1, step_no - self._last_merge_step)
+
+    def _run_average_round(self, step_no: int) -> Optional[Any]:
+        """One blocking round: host payload -> averager -> merged tree, or
+        None when no group formed / the round failed."""
+        host = self._host_tree(self.state.params)
+        payload = self.bundle.avg_select(host)
+        self._note_window_progress(step_no)
+        t_avg = time.monotonic()
+        averaged = self.averager(payload, step_no)
+        self.metrics.record_event(
+            step_no, "avg_round",
+            {"avg_s": time.monotonic() - t_avg, "ok": averaged is not None, "what": "params"},
+        )
+        if averaged is None:
+            return None
+        return self.bundle.avg_merge(host, tree_map(np.asarray, averaged))
+
+    def _launch_overlap_round(self, step_no: int) -> None:
+        """Snapshot the payload to the host and run the round on the pool
+        while the next steps run (the train step updates the params in
+        place, so the pool must never read them)."""
+        payload0 = self._host_tree(self.bundle.avg_select(self.state.params))
+        self._note_window_progress(step_no)
+        t0 = time.monotonic()
+        fut = self._avg_pool.submit(lambda: (self.averager(payload0, step_no), time.monotonic() - t0))
+        self._inflight = (step_no, payload0, fut)
+
+    def _finish_overlap_round(self, step_no: int, wait: bool = False) -> None:
+        """Merge a completed round: new = averaged + (current - snapshot),
+        keeping the steps taken while the round was in flight."""
+        if self._inflight is None:
+            return
+        launch_step, payload0, fut = self._inflight
+        if not wait and not fut.done():
+            return
+        self._inflight = None
+        try:
+            averaged, avg_s = fut.result(timeout=600.0 if wait else 0.0)
+        except Exception as e:  # noqa: BLE001 — a failed round never kills training
+            log.warning("overlapped averaging launched at step %d failed: %s", launch_step, errstr(e))
+            self.metrics.record_event(step_no, "avg_round", {"ok": False, "what": "params", "overlap": True})
+            return
+        staleness = step_no - launch_step
+        ok = averaged is not None
+        if ok and self.max_staleness and staleness > self.max_staleness:
+            log.warning("dropping averaging result: staleness %d > bound %d", staleness, self.max_staleness)
+            ok = False
+        self.metrics.record_event(
+            step_no, "avg_round",
+            {"avg_s": avg_s, "ok": ok, "what": "params", "overlap": True, "staleness": staleness},
+        )
+        if not ok:
+            return
+        current = self._host_tree(self.state.params)
+        merged = tree_map(
+            lambda avg, cur, p0: np.asarray(avg, np.float32) + (cur - p0),
+            averaged, self.bundle.avg_select(current), payload0,
+        )
+        self._swap_params(self.bundle.avg_merge(current, merged))
+        # Progress up to the LAUNCH step entered the average.
+        self._last_merge_step = launch_step
 
     def run(
         self,
@@ -105,6 +235,8 @@ class Trainer:
         m = None
         last_loss = float("nan")
         start_step = self.state.step
+        if self._last_merge_step is None:
+            self._last_merge_step = start_step
         t_start = time.monotonic()
         ran_steps = 0
         target_crossed: Optional[Tuple[int, float]] = None
@@ -122,6 +254,18 @@ class Trainer:
                 self.metrics.record(step_no, m, n_samples=self.batch_size)
             else:
                 self.metrics.count_samples(self.batch_size)
+            if self.averager is not None:
+                if self.overlap:
+                    # Merge a round that completed since the last step, then
+                    # (at the cadence, none in flight) launch the next one.
+                    self._finish_overlap_round(step_no)
+                    if step_no % self.average_every == 0 and self._inflight is None:
+                        self._launch_overlap_round(step_no)
+                elif step_no % self.average_every == 0:
+                    merged = self._run_average_round(step_no)
+                    if merged is not None:
+                        self._swap_params(merged)
+                        self._last_merge_step = step_no
             if at_log_point:
                 log.info(
                     "step %d loss %.4f (%.1f samples/s)",
@@ -132,6 +276,10 @@ class Trainer:
                     target_crossed = self._record_target_crossed(step_no, target_loss, t_start)
                 if target_mode == "stop":
                     break
+        # Drain an in-flight round so the returned params are contracted and
+        # a partner mid-round is not abandoned by our exit.
+        if self.overlap:
+            self._finish_overlap_round(start_step + ran_steps, wait=True)
         if m is not None:
             last_loss = float(m["loss"])  # sync once at the end regardless
         wall = time.monotonic() - t_start

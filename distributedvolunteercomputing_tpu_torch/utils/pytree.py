@@ -118,15 +118,24 @@ def unflatten_from_buffer(
     buf: np.ndarray,
     specs: Sequence[TensorSpec],
     treedef: TreeDef,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device, None] = "cpu",
 ) -> Any:
-    """Inverse of :func:`flatten_to_buffer` (restores shapes and dtypes)."""
+    """Inverse of :func:`flatten_to_buffer` (restores shapes and dtypes).
+
+    ``device=None`` returns host numpy leaves, the averager's contract
+    (AveragerFn takes and returns host trees). numpy has no bf16, so bf16
+    leaves come back as float32 there; the trainer casts on the device."""
     leaves = []
     offset = 0
     for spec in specs:
         n = spec.size
         chunk = np.ascontiguousarray(buf[offset : offset + n], np.float32).reshape(spec.shape)
-        leaves.append(torch.from_numpy(chunk).to(device=device, dtype=torch_dtype(spec.dtype)))
+        if device is None:
+            # A copy, as the reference's astype makes: the leaves never alias
+            # the averager's buffer.
+            leaves.append(chunk.astype(np.float32 if spec.dtype == "bfloat16" else spec.dtype))
+        else:
+            leaves.append(torch.from_numpy(chunk).to(device=device, dtype=torch_dtype(spec.dtype)))
         offset += n
     if offset != buf.size:
         raise ValueError(f"buffer size {buf.size} != specs total {offset}")

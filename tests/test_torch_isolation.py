@@ -28,6 +28,28 @@ def _forbidden(name: str) -> bool:
     return root in FORBIDDEN
 
 
+# The modules of the averaging slice: the scans below must reach them.
+SWARM_SLICE = (
+    "distributedvolunteercomputing_tpu_torch.native",
+    "distributedvolunteercomputing_tpu_torch.ops.mesh_codec",
+    "distributedvolunteercomputing_tpu_torch.ops.robust",
+    "distributedvolunteercomputing_tpu_torch.swarm.agg_stream",
+    "distributedvolunteercomputing_tpu_torch.swarm.averager",
+    "distributedvolunteercomputing_tpu_torch.swarm.dht",
+    "distributedvolunteercomputing_tpu_torch.swarm.health",
+    "distributedvolunteercomputing_tpu_torch.swarm.matchmaking",
+    "distributedvolunteercomputing_tpu_torch.swarm.membership",
+    "distributedvolunteercomputing_tpu_torch.swarm.telemetry",
+    "distributedvolunteercomputing_tpu_torch.swarm.transport",
+    "distributedvolunteercomputing_tpu_torch.swarm.volunteer",
+    "distributedvolunteercomputing_tpu_torch.swarm.watchdog",
+)
+
+
+def test_scans_cover_the_swarm_slice():
+    assert set(SWARM_SLICE) <= {m for m, _ in _port_modules()}
+
+
 def test_import_loads_no_jax():
     # A subprocess: tests/conftest.py has already imported the JAX package here.
     mods = [m for m, _ in _port_modules()]
