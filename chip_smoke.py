@@ -42,6 +42,27 @@ Phases, each printing one JSON line:
             (``expected_codec_launches``), one streamed round's results
             within ``AVG_TOL`` of the weighted mean of the two payloads, and
             finite losses.
+7. ring_kernels  the ring kernels (K6 reduce-scatter fold, K7 all-gather)
+            against their plain versions at nd = 2 and 4 ranks: the first nd
+            cards when there are that many, else nd ranks sharing cuda:0
+            (printed with ``cross_card``). Three flushes: the flagship one
+            (gpt2_small's flat buffer, 1 MiB chunks, 16 chunks with repeated
+            tiles, the short tail tile and one zero weight), a ragged one
+            (shards not a multiple of 8: the scalar paths) and special bit
+            patterns. K6 bit-equal on finite lanes with inf / NaN lanes
+            matching, K7 bit-equal, the whole fold within ``RING_TOL`` of the
+            host fold; kernel / plain / library times per flush and per
+            result, and the bound;
+8. dp_parity one full-width f32 step of the dp=2 trainer (two ranks, as in
+            7) against the one-rank trainer from the same init and batch:
+            every averaged-gradient leaf, the loss and every param leaf's
+            update after the step (``PARITY_TOL["dp"]``), identical replicas;
+            then the dp=2 trainer's samples/s in bf16;
+9. ring_averaging  phase 6 again with both volunteers on a dp=2 mesh and
+            ``mesh_collective="ring"``: the leader's streamed rounds fold on
+            K6 and gather on K7, no K5 launch, K4 once per rank per encode,
+            K6 = nd² per ring flush and K7 = nd·(nd - 1) per ring result
+            (the codec's gauges), values within ``AVG_TOL``.
 
 Then one line listing every kernel, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure raises: the script
@@ -86,6 +107,7 @@ TOL = {  # dtype -> (rtol, atol, lse atol)
 # f32 leaves within 1.8e-6, bf16 leaves within 2.5e-2, and the bf16 kernels
 # within 0.2% of the plain core's distance from f32.
 PARITY_TOL = {
+    "dp": {"loss": 1e-6, "leaf_l2": 1e-5, "leaf_max": 1e-5, "update_l2": 1e-3},
     "f32": {"leaf_l2": 1e-5, "leaf_max": 1e-5, "loss": 1e-6},
     "bf16": {"leaf_l2": 5e-2, "leaf_max": 5e-2, "loss": 1e-5, "vs_plain": 1.1},
 }
@@ -114,6 +136,34 @@ CODEC_TOL = {"rtol": 1e-5, "atol": 1e-6}
 # ulps of the same scale, and the smallest normal). The member fetches that
 # result over the bf16 wire: within one bf16 rounding of the leader's.
 AVG_TOL = {"bf16_u": 2.0**-8, "f32_ulps": 4 * 2.0**-24, "floor": 2.0**-126}
+# Ring (K6 / K7): rank counts checked on the card, and the whole fold
+# against native's host fold, which adds in batch order where the ring adds
+# in ring order: the reference's own tolerance for its ring
+# (tests/test_mesh_collective.py). Kernel vs plain version is bit-equal.
+RING_NDS = (2, 4)
+RING_TOL = {"rtol": 1e-5, "atol": 1e-6}
+RING_SOURCE = "distributedvolunteercomputing_tpu_torch/csrc/ring_collective.cu"
+RING_KERNELS = {  # name -> (TPU kernel it replaces, id)
+    "ring_fold": ("distributedvolunteercomputing_tpu/ops/mesh_collective.py:87", "K6"),
+    "ring_allgather": ("distributedvolunteercomputing_tpu/ops/mesh_collective.py:203", "K7"),
+}
+# bf16 bit patterns put at the start of every chunk of the "special" case:
+# ±0, ±inf, NaNs, subnormals (smallest, largest), the smallest normal and
+# the largest finite value of both signs.
+RING_SPECIAL_BF16 = (0x0000, 0x8000, 0x7F80, 0xFF80, 0x7FC0, 0xFFC0, 0x7F81,
+                     0x0001, 0x8001, 0x007F, 0x0080, 0x7F7F, 0xFF7F)
+# dp=2 vs one rank, one f32 step from the same init and batch
+# (PARITY_TOL["dp"]): the loss, and every leaf of the averaged gradient as
+# the f32 trainer parity holds it (the two sum the batch in different
+# orders); then every param leaf after one clipped AdamW step at DP_LR, held
+# by its update: ||u_dp - u_one|| / ||u_one|| per leaf. Not elementwise:
+# Adam's first update is lr * g / (|g| + eps), which turns a gradient
+# difference d of an element with |g| near eps into up to lr * d / eps (this
+# phase's row on an H100: param_leaf max_abs_diff up to 6.5e-5 = 0.065 lr,
+# with every grad_leaf within 1.9e-6). The key bias is left out of it: its exact gradient is 0,
+# both sides hold rounding noise that Adam turns into updates of up to ~lr
+# of either sign.
+DP_LR = 1e-3
 # Published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s, f32 FLOP/s.
 PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12), "H100": (3.35e12, 989e12, 67e12)}
 
@@ -586,7 +636,10 @@ AVG_EVERY = 2
 AVG_OVERLAP = False
 
 
-def expected_codec_launches(groups_formed: int, committed_rounds: int, streamed_contribs: int) -> dict:
+def expected_codec_launches(
+    groups_formed: int, committed_rounds: int, streamed_contribs: int,
+    nd: int = 1, ring: bool = False, ring_flushes: int = 0, ring_results: int = 0,
+) -> dict:
     """Launches the round protocol implies for two volunteers sharing the
     card (``swarm/averager.py``, ``swarm/agg_stream.py``, health probe on),
     from what is known without the codec: the groups matchmaking formed
@@ -601,22 +654,34 @@ def expected_codec_launches(groups_formed: int, committed_rounds: int, streamed_
     (``_wire_roundtrip``), or the member's push (``_wire_stream``, one
     whole-buffer encode on an active codec). Each committed round of two has
     one member, whose fetch the leader encodes once (``_wire_stream`` of
-    ``st.result``); a skipped round has no result to encode.
+    ``st.result``); a skipped round has no result to encode. A codec of
+    ``nd`` ranks launches K4 once per rank for each encode.
     K5: one per 1 MiB chunk of every contribution that streamed into the
-    leader's folder (``MeshMeanFolder._flush_dev``). Round 1 parks the
-    member's push dense (the leader arms after its first pack); dense feeds
-    are plain ``add_``."""
+    leader's staged folder (``MeshMeanFolder._flush_dev``), none under the
+    ring. Round 1 parks the member's push dense (the leader arms after its
+    first pack); dense feeds are plain ``add_``.
+    K6 / K7 (ring, ``nd`` ranks): nd steps of nd launches per ring flush,
+    nd - 1 hops of nd launches per ring result, counted by the codec's
+    ``ring_flushes`` and ``ring_results`` gauges."""
     chunks = -(-FLAT_N * 2 // (1 << 20))
-    return {
-        "bf16_encode": 2 * groups_formed + committed_rounds,
-        "bf16_decode_axpy": chunks * streamed_contribs,
+    out = {
+        "bf16_encode": nd * (2 * groups_formed + committed_rounds),
+        "bf16_decode_axpy": 0 if ring else chunks * streamed_contribs,
     }
+    if ring:
+        out.update(ring_fold=nd * nd * ring_flushes, ring_allgather=nd * (nd - 1) * ring_results)
+    return out
 
 
-def averaging_phase() -> dict:
+def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging") -> dict:
+    """Two full-width volunteers averaging in blocking sync rounds (see the
+    module doc). With ``mesh`` (a port ``Mesh``) each volunteer trains
+    data-parallel over its ranks and its codec runs on them; ``collective``
+    "ring" folds the leader's rounds on K6/K7."""
     import numpy as np
 
     from distributedvolunteercomputing_tpu_torch import native
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_collective as mcol
     from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
     from distributedvolunteercomputing_tpu_torch.swarm.volunteer import Volunteer, VolunteerConfig
     from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer
@@ -675,8 +740,9 @@ def averaging_phase() -> dict:
 
     async def run_pair():
         base = dict(model="gpt2_small", batch_size=8, averaging="sync", wire="bf16",
-                    average_every=AVG_EVERY, overlap=AVG_OVERLAP, steps=AVG_MAX_STEPS)
-        paths = [out_dir / f"volunteer{i}.jsonl" for i in range(2)]
+                    average_every=AVG_EVERY, overlap=AVG_OVERLAP, steps=AVG_MAX_STEPS,
+                    mesh=mesh if mesh is not None else "", mesh_collective=collective)
+        paths = [out_dir / f"{phase}_volunteer{i}.jsonl" for i in range(2)]
         for p in paths:
             p.unlink(missing_ok=True)
         t0 = time.perf_counter()
@@ -698,7 +764,7 @@ def averaging_phase() -> dict:
         finally:
             await asyncio.gather(v0.stop(), v1.stop())
         torch.cuda.synchronize()
-        launches = {**dict(mc.LAUNCHES), **flash_launches()}
+        launches = {**dict(mc.LAUNCHES), **dict(mcol.LAUNCHES), **flash_launches()}
         return summaries, launches, start_s, time.perf_counter() - t0, paths
 
     summaries, launches, start_s, run_s, paths = asyncio.run(run_pair())
@@ -712,9 +778,16 @@ def averaging_phase() -> dict:
     spans = [s["telemetry"]["spans"] for s in summaries]
     packs = sum(sp.get("encode", {}).get("count", 0) for sp in spans)
     fetches = sum(sp.get("fetch", {}).get("count", 0) for sp in spans)
-    expect = expected_codec_launches(sum(groups_formed), rounds[0], streamed)
+    nd = codec_stats["devices"]
+    ring = collective == "ring"
+    expect = expected_codec_launches(
+        sum(groups_formed), rounds[0], streamed, nd=nd, ring=ring,
+        ring_flushes=codec_stats["ring_flushes"], ring_results=codec_stats["ring_results"],
+    )
+    folder = "ring" if ring else "staged"
     row = {
-        "phase": "averaging", "model": "gpt2_small", "batch_size": 8, "max_steps": AVG_MAX_STEPS,
+        "phase": phase, "model": "gpt2_small", "batch_size": 8, "max_steps": AVG_MAX_STEPS,
+        "mesh": repr(mesh) if mesh is not None else None, "collective": collective,
         "commits": AVG_COMMITS, "steps": [s["steps"] for s in summaries],
         "average_every": AVG_EVERY, "overlap": AVG_OVERLAP, "wire": "bf16",
         "start_s": start_s, "run_s": run_s, "rounds_ok": rounds,
@@ -735,8 +808,10 @@ def averaging_phase() -> dict:
         failures.append(f"rounds ok {rounds}, skipped {row['rounds_skipped']}, degraded {row['rounds_degraded']}")
     if committed != rounds:
         failures.append(f"results returned to the trainers {committed} != rounds committed {rounds}")
-    if streamed < 1 or not any(a.get("folder_kind") == "staged" and a.get("folder_flushes", 0) > 0 for a in agg):
-        failures.append("no contribution streamed through the leader's device folder")
+    if streamed < 1 or not any(a.get("folder_kind") == folder and a.get("folder_flushes", 0) > 0 for a in agg):
+        failures.append(f"no contribution streamed through the leader's {folder} device folder")
+    if ring and sum(a.get("ring_flushes", 0) for a in agg) != codec_stats["ring_flushes"]:
+        failures.append(f"ring flushes: aggregators {[a.get('ring_flushes') for a in agg]}, codec {codec_stats}")
     if sum(a.get("aborted_contribs", 0) + a.get("tiles_recovered", 0) + a.get("hedge_duplicates", 0)
            for a in agg):
         failures.append("aborted or hedged contributions: the launch counts below would not be exact")
@@ -751,8 +826,8 @@ def averaging_phase() -> dict:
     row["values"] = check_averaged_values(records, failures)
     emit(row)
     if failures:
-        raise AssertionError(f"averaging phase: {failures}")
-    return {k: launches[k] for k in CODEC_KERNELS}
+        raise AssertionError(f"{phase} phase: {failures}")
+    return {k: launches[k] for k in expect}
 
 
 def check_averaged_values(records, failures) -> dict:
@@ -792,6 +867,335 @@ def check_averaged_values(records, failures) -> dict:
     return {}
 
 
+# ---------------------------------------------------------------------------
+# ring: K6 / K7 against their plain versions, the DP trainer, the ring round
+# ---------------------------------------------------------------------------
+
+
+def ring_ranks(nd: int):
+    """The first ``nd`` visible cards when there are that many, else ``nd``
+    ranks sharing cuda:0 (their ring hops are then device-local reads)."""
+    n = torch.cuda.device_count()
+    cross = n >= nd
+    devices = [torch.device("cuda", i if cross else 0) for i in range(nd)]
+    return devices, cross
+
+
+def ring_case(name: str, devices, n_elems: int, tile: int, tiles, weights, gen, special: bool = False):
+    """One flush of ``len(tiles)`` chunks over ``nd`` ranks: random f32
+    accumulator shards, each chunk's bf16 bits (short tail chunks
+    zero-padded), the chunks split over the ranks as the ring folder splits
+    a batch (contiguous runs)."""
+    import numpy as np
+
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+
+    nd = len(devices)
+    n_tiles = -(-n_elems // tile)
+    shard = tile // nd
+    k = len(tiles)
+    x = torch.randn((k, tile), generator=gen, device="cuda")
+    bits = mc.encode_bf16_plain(x.view(-1)).view(k, tile)
+    if special:
+        # Random bit patterns (every exponent: subnormals, inf, NaN) with the
+        # special values up front in every chunk.
+        bits = torch.randint(-(2**15), 2**15, (k, tile), generator=gen, device="cuda", dtype=torch.int32)
+        bits = bits.to(torch.int16)
+        sp = torch.from_numpy(np.array(RING_SPECIAL_BF16, np.uint16).view(np.int16)).cuda()
+        bits[:, : sp.numel()] = sp
+    for i, t in enumerate(tiles):
+        valid = min(tile, n_elems - t * tile)
+        bits[i, valid:] = 0  # a short tail chunk is zero-padded
+    per = -(-k // nd)
+    own = [slice(min(d * per, k), min((d + 1) * per, k)) for d in range(nd)]
+    acc0 = torch.randn((n_tiles, tile), generator=gen, device="cuda")
+    return {
+        "name": name, "nd": nd, "n_elems": n_elems, "tile": tile, "n_tiles": n_tiles, "shard": shard,
+        "devices": devices, "tiles": list(tiles), "weights": list(weights), "special": special,
+        "bits_full": bits,
+        "bits": [bits[sl].to(dev).contiguous() for sl, dev in zip(own, devices)],
+        "rank_tiles": [list(tiles[sl]) for sl in own],
+        "rank_weights": [list(weights[sl]) for sl in own],
+        "acc0": acc0,
+    }
+
+
+def ring_accs(case):
+    sh = case["shard"]
+    return [case["acc0"][:, d * sh : (d + 1) * sh].to(dev).contiguous() for d, dev in enumerate(case["devices"])]
+
+
+def bits_equal(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Bit-equal on every lane where ``want`` is finite; inf lanes equal and
+    NaN lanes NaN on both sides."""
+    got, want = got.to(want.device), want
+    fin = torch.isfinite(want)
+    diff_bits = (got.view(torch.int32) != want.view(torch.int32)) & fin
+    nonfin_ok = ((got == want) | (torch.isnan(got) & torch.isnan(want)))[~fin].all().item()
+    err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+    return {"finite_lanes_differing": int(diff_bits.sum().item()), "nonfinite_lanes": int((~fin).sum().item()),
+            "nonfinite_match": bool(nonfin_ok), "max_abs_err": err}
+
+
+def host_fold(case, accs_init) -> "np.ndarray":
+    """``native``'s host fold of the flush, in batch order, into the
+    initial accumulator (the reference's ``_host_ref``)."""
+    import numpy as np
+
+    from distributedvolunteercomputing_tpu_torch import native
+
+    full = torch.cat([a.cpu() for a in accs_init], dim=1).numpy().reshape(-1).copy()
+    bits = case["bits_full"].cpu().numpy().view(np.uint16)
+    tile = case["tile"]
+    for i, (t, w) in enumerate(zip(case["tiles"], case["weights"])):
+        n = min(tile, case["n_elems"] - t * tile)
+        native.weighted_sum_inplace(full[t * tile : t * tile + n], native.bf16_to_f32(bits[i, :n]), w)
+    return full[: case["n_elems"]]
+
+
+def ring_kernels_phase(peak, ranks=ring_ranks) -> dict:
+    """K6 and K7 against ``ring_fold_plain`` / ``ring_allgather_plain`` at
+    nd = 2 and 4 on the ranks of ``ring_ranks``: the flagship geometry (one
+    full 16-chunk flush with repeated tiles, the short tail tile and one zero
+    weight), a ragged one (tile not a multiple of 8 per shard: the scalar
+    paths; a short tail chunk) and special bit patterns. K6 bit-equal on
+    finite lanes with inf/NaN lanes matching, K7 bit-equal; the whole fold
+    within ``RING_TOL`` of ``native``'s host fold (not for the special bits,
+    whose huge random values overflow in an order-dependent way). Timed at
+    the flagship geometry: per flush, per result, plain versions and library
+    yardsticks, with the bound. ``ranks(nd)`` -> (devices, cross_card)
+    places the ranks."""
+    import numpy as np
+
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_collective as mcol
+
+    mem_rate, _, f32_rate = peak
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    rng = np.random.default_rng(2024)
+    flag_tiles = FLAT_N // CHUNK_N + 1  # 238, the last one short
+    results = {}
+    for nd in RING_NDS:
+        devices, cross = ranks(nd)
+        emit({"phase": "ring_ranks", "nd": nd, "devices": [str(d) for d in devices], "cross_card": cross,
+              "device_count": torch.cuda.device_count()})
+        codec = mc.MeshCodec(backend="device", mesh=_mesh(devices), collective="ring")
+        ft = rng.choice(flag_tiles - 1, 12).tolist() + [flag_tiles - 1]
+        ft = ft + ft[:3]  # repeated tiles within and across ranks; 16 chunks
+        fw = rng.uniform(0.25, 2.0, len(ft)).astype(np.float32).tolist()
+        fw[5] = 0.0
+        rt = [0, 2, 1, 2, 0, 2, 1]
+        cases = [
+            ring_case("flagship", devices, FLAT_N, CHUNK_N, ft, fw, gen),
+            ring_case("ragged", devices, 2 * 4100 + 77, 4100, rt, rng.uniform(0.5, 2.0, 7).tolist(), gen),
+            ring_case("special", devices, 3 * 65536, 65536, [0, 1, 2, 1, 0, 2], [1.0, 0.0, 2.5, 0.5, 1.5, 3.0], gen,
+                      special=True),
+        ]
+        for case in cases:
+            if case["tile"] % nd:
+                continue
+            accs_k, accs_p = ring_accs(case), ring_accs(case)
+            init = [a.clone() for a in accs_k]
+            mcol.ring_fold(accs_k, case["bits"], case["rank_tiles"], case["rank_weights"], streams=codec.streams)
+            mcol.ring_fold_plain(accs_p, case["bits"], case["rank_tiles"], case["rank_weights"])
+            outs_k = mcol.ring_allgather(accs_k, streams=codec.streams)
+            outs_p = mcol.ring_allgather_plain(accs_k)
+            torch.cuda.synchronize()
+            fold = [bits_equal(a, b) for a, b in zip(accs_k, accs_p)]
+            gather = [bits_equal(a, b) for a, b in zip(outs_k, outs_p)]
+            row = {
+                "phase": "ring_kernels", "case": case["name"], "nd": nd, "cross_card": cross,
+                "n_elems": case["n_elems"], "tile": case["tile"], "n_tiles": case["n_tiles"],
+                "chunks": len(case["tiles"]), "distinct_tiles": len(set(case["tiles"])),
+                "chunks_per_rank": [len(t) for t in case["rank_tiles"]],
+                "ring_fold_vs_plain": fold, "ring_allgather_vs_plain": gather,
+            }
+            ok = all(f["finite_lanes_differing"] == 0 and f["nonfinite_match"] for f in fold + gather)
+            if not case["special"]:
+                got = outs_k[0].view(-1)[: case["n_elems"]].cpu().numpy()
+                want = host_fold(case, init)
+                err = np.abs(got.astype(np.float64) - want)
+                lim = RING_TOL["atol"] + RING_TOL["rtol"] * np.abs(want)
+                row["vs_host_fold"] = {"max_abs_err": float(err.max()), "limit_used": float((err / lim).max()),
+                                       "finite": bool(np.isfinite(got).all()), **RING_TOL}
+                ok = ok and row["vs_host_fold"]["limit_used"] <= 1.0 and row["vs_host_fold"]["finite"]
+            row["ok"] = bool(ok)
+            if not ok:
+                emit(row)
+                raise AssertionError(f"ring kernels disagree ({case['name']}, nd={nd})")
+            if case["name"] == "flagship":
+                row["timing"] = time_ring(case, codec, mem_rate, f32_rate)
+            emit(row)
+            results[(case["name"], nd)] = row
+            del accs_k, accs_p, init, outs_k, outs_p
+        del cases
+        torch.cuda.empty_cache()
+    return results
+
+
+def kernel_device_ms(fn, kernel: str, iters: int = 10) -> float:
+    """Device time per call of ``fn`` spent in kernels whose name holds
+    ``kernel``, from a ``torch.profiler`` trace (the wrapper's host work and
+    the gaps between its launches left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total_us += next((float(getattr(evt, a)) for a in ("self_device_time_total", "self_cuda_time_total")
+                              if getattr(evt, a, None)), 0.0)
+    return total_us / iters / 1e3
+
+
+def time_ring(case, codec, mem_rate, f32_rate) -> dict:
+    """ms per flush (K6: the wrapper's whole ring, host metadata included)
+    and per result (K7) from CUDA events, the kernels' own device time from
+    the profiler, plain versions, library yardsticks and bounds."""
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_collective as mcol
+
+    nd, tile, n_tiles, shard = case["nd"], case["tile"], case["n_tiles"], case["shard"]
+    k, u = len(case["tiles"]), len(set(case["tiles"]))
+    accs = ring_accs(case)
+    args = (case["bits"], case["rank_tiles"], case["rank_weights"])
+    # Yardsticks the port never calls: the fold without the ring (decoded,
+    # weighted batch -> one index_add_), at full width and into one shard.
+    dec = torch.tensor(case["weights"], device="cuda")[:, None] * mc.widen_bf16(case["bits_full"])
+    tiles_t = torch.tensor(case["tiles"], device="cuda")
+    full = case["acc0"].clone()
+    one_shard = accs[0].clone()
+    dec_shard = dec[:, :shard].contiguous()
+    blocks = [[o[:, b * shard : (b + 1) * shard] for b in range(nd)] for o in
+              [torch.empty((n_tiles, tile), device=dev) for dev in case["devices"]]]
+    fold_bytes = k * tile * 2 + 2 * u * tile * 4 + 8 * k
+    fold_flops = 2 * k * tile + u * tile
+    gather_bytes = (1 + nd) * n_tiles * tile * 4
+    out = {
+        "K6": {
+            "ms": time_ms(lambda: mcol.ring_fold(accs, *args, streams=codec.streams)),
+            "device_ms": kernel_device_ms(lambda: mcol.ring_fold(accs, *args, streams=codec.streams),
+                                          "ring_fold_kernel"),
+            "plain_ms": time_ms(lambda: mcol.ring_fold_plain(accs, *args), iters=5),
+            "library_ms": time_ms(lambda: full.index_add_(0, tiles_t, dec)),
+            "library_call": "acc.index_add_(0, tiles, w * widen(bits)) at full width, decode not timed",
+            "library_shard_ms": time_ms(lambda: one_shard.index_add_(0, tiles_t, dec_shard)),
+            "bytes": fold_bytes, "flops": fold_flops, "launches_per_flush": nd * nd,
+            "bound_ms": max(fold_bytes / mem_rate, fold_flops / f32_rate) * 1e3,
+            "bound_by": "bytes" if fold_bytes / mem_rate >= fold_flops / f32_rate else "operations",
+        },
+        "K7": {
+            "ms": time_ms(lambda: mcol.ring_allgather(accs, streams=codec.streams)),
+            "device_ms": kernel_device_ms(lambda: mcol.ring_allgather(accs, streams=codec.streams),
+                                          "ring_allgather_kernel"),
+            "plain_ms": time_ms(lambda: mcol.ring_allgather_plain(accs), iters=5),
+            "library_ms": time_ms(lambda: [blk.copy_(accs[b]) for row in blocks for b, blk in enumerate(row)]),
+            "library_call": f"Tensor.copy_ of the same {nd * nd} blocks between the rank buffers",
+            "bytes": gather_bytes, "flops": 0, "launches_per_result": nd * (nd - 1),
+            "bound_ms": gather_bytes / mem_rate * 1e3, "bound_by": "bytes",
+        },
+    }
+    del accs, dec, full, one_shard, dec_shard, blocks
+    return out
+
+
+def _mesh(devices):
+    from distributedvolunteercomputing_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(dp=len(devices), devices=devices)
+
+
+def dp_parity_phase(steps_timed: int = 5) -> dict:
+    """One full-width gpt2_small step of the dp=2 trainer against the
+    one-rank trainer, from the same init and batch, in f32: the averaged
+    gradient's every leaf and the loss, then every param leaf after one
+    clipped AdamW step, by its update (all in ``PARITY_TOL["dp"]``; the key
+    bias, whose gradient is rounding noise that Adam normalizes to ~lr, is
+    reported only). Then the dp=2 trainer's samples/s in its working dtype
+    (bf16)."""
+    from distributedvolunteercomputing_tpu_torch.models import get_model
+    from distributedvolunteercomputing_tpu_torch.parallel.train_step import dp_grad_half
+    from distributedvolunteercomputing_tpu_torch.training.steps import grad_half
+    from distributedvolunteercomputing_tpu_torch.training.trainer import Trainer
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_leaves
+    from distributedvolunteercomputing_tpu_torch.utils.torchenv import compute_dtype_as
+
+    devices, cross = ring_ranks(2)
+    bundle = get_model("gpt2_small")
+    cfg = bundle.config
+    batch = bundle.make_batch(torch.Generator().manual_seed(7), 8)
+    with compute_dtype_as(torch.float32):
+        one = Trainer(bundle, batch_size=8, lr=DP_LR)
+        dp = Trainer(bundle, batch_size=8, lr=DP_LR, mesh=_mesh(devices))
+        names = leaf_names(one.state.params)
+        init = [p.clone() for p in tree_leaves(one.state.params)]
+        g1, m1 = grad_half(bundle.loss_fn, one.state, one._to_device(batch))
+        g2, m2 = dp_grad_half(bundle.loss_fn, dp.state, dp._to_device(batch))
+        grads = leaf_diff(g2, g1, names)
+        del g1, g2
+        _, s1 = one._step_fn(one.state, one._to_device(batch))
+        _, s2 = dp._step_fn(dp.state, dp._to_device(batch))
+        torch.cuda.synchronize()
+    tol = PARITY_TOL["dp"]
+    kb = slice(cfg.d_model, 2 * cfg.d_model)
+    params = {}
+    key_bias = float("nan")
+    replicas_equal = True
+    for name, a, b, p0 in zip(names, tree_leaves(dp.state.params), tree_leaves(one.state.params), init):
+        u_dp, u_one = a.float() - p0, b.float() - p0
+        if name == "blocks/qkv/b":
+            key_bias = (u_dp[:, kb] - u_one[:, kb]).abs().max().item()
+            u_dp[:, kb] = u_one[:, kb] = 0.0
+        params[name] = {
+            "update_l2": ((u_dp - u_one).norm() / u_one.norm().clamp_min(1e-30)).item(),
+            "max_abs_diff": (u_dp - u_one).abs().max().item(),
+        }
+    del init
+    for r in dp.state.replicas[1:]:
+        for a, b in zip(tree_leaves(r.params), tree_leaves(dp.state.params)):
+            replicas_equal = replicas_equal and bool(torch.equal(a.to(b.device), b))
+    row = {
+        "phase": "dp_parity", "model": bundle.name, "dp": 2, "devices": [str(d) for d in devices],
+        "cross_card": cross, "batch_size": 8, "dtype": "float32",
+        "loss_one": float(m1["loss"]), "loss_dp": float(m2["loss"]),
+        "loss_rel_diff": abs(float(m1["loss"]) - float(m2["loss"])) / abs(float(m1["loss"])),
+        "grad_norm_one": float(s1["grad_norm"]), "grad_norm_dp": float(s2["grad_norm"]),
+        "grad_leaf": grads, "param_leaf": params, "key_bias_max_abs_diff": key_bias, "lr": DP_LR,
+        "replicas_identical": replicas_equal, "tol": tol,
+    }
+    failures = [f"grad {n} {kind}" for n, e in grads.items() for kind in ("l2", "max")
+                if not e[kind] <= tol[f"leaf_{kind}"]]
+    failures += [f"param {n}" for n, e in params.items() if not e["update_l2"] <= tol["update_l2"]]
+    if not row["loss_rel_diff"] <= tol["loss"]:
+        failures.append("loss")
+    if not abs(row["grad_norm_dp"] - row["grad_norm_one"]) <= tol["loss"] * 10 * row["grad_norm_one"]:
+        failures.append("grad_norm")
+    if not replicas_equal:
+        failures.append("replicas differ after the step")
+    del one, dp
+    torch.cuda.empty_cache()
+    # The dp=2 trainer on its main path (bf16): samples/s.
+    trainer = Trainer(bundle, batch_size=8, mesh=_mesh(devices), total_steps=2 + steps_timed)
+    trainer.run(steps=2, log_every=0)
+    torch.cuda.synchronize()
+    summary = trainer.run(steps=steps_timed, log_every=0)
+    row.update(dp_samples_per_sec=summary["samples_per_sec"], dp_step_ms=summary["wall_time_s"] / steps_timed * 1e3,
+               dp_timed_steps=steps_timed, dp_final_loss=summary["final_loss"])
+    if not math.isfinite(summary["final_loss"]):
+        failures.append("non-finite dp loss")
+    emit(row)
+    del trainer
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"dp=2 step disagrees with the one-rank step: {failures}")
+    return row
+
+
 def flash_launches() -> dict:
     from distributedvolunteercomputing_tpu_torch.ops import flash_attention as fa
 
@@ -801,9 +1205,11 @@ def flash_launches() -> dict:
 def reset_all_launch_counts() -> None:
     from distributedvolunteercomputing_tpu_torch.ops import flash_attention as fa
     from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_collective as mcol
 
     fa.reset_launch_counts()
     mc.reset_launch_counts()
+    mcol.reset_launch_counts()
 
 
 def main() -> int:
@@ -841,6 +1247,11 @@ def main() -> int:
     launches = trainer_phase(fa)
     codec = codec_phase(peak)
     launches.update(averaging_phase())
+    ring = ring_kernels_phase(peak)
+    dp_parity_phase()
+    devices, _ = ring_ranks(2)
+    ring_launches = averaging_phase(mesh=_mesh(devices), collective="ring", phase="ring_averaging")
+    launches.update({k: ring_launches[k] for k in RING_KERNELS})
 
     kernels = []
     for kname, (replaces, kid) in KERNELS.items():
@@ -860,6 +1271,18 @@ def main() -> int:
             "launches": launches[kname], "max_abs_err": err, "n": r["n"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_call": r["library_call"],
+        })
+    flag = ring[("flagship", 2)]
+    for kname, (replaces, kid) in RING_KERNELS.items():
+        r = flag["timing"]["K6" if kid == "K6" else "K7"]
+        checks = [row["ring_fold_vs_plain" if kid == "K6" else "ring_allgather_vs_plain"] for row in ring.values()]
+        kernels.append({
+            "name": kname, "id": kid, "route": "cuda", "source": RING_SOURCE, "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": max(c["max_abs_err"] for rows in checks for c in rows),
+            "nd": 2, "cross_card": flag["cross_card"], "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_call": r["library_call"],
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

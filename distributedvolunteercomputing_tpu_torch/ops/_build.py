@@ -22,7 +22,9 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "flash_attention.cu", _PKG / "csrc" / "bf16_codec.cu")
+SOURCES = tuple(
+    _PKG / "csrc" / name for name in ("flash_attention.cu", "bf16_codec.cu", "ring_collective.cu")
+)
 # No --use_fast_math / -ftz: the codec kernels must round subnormals exactly.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,6 +49,11 @@ _SIGNATURES = {
     # (x, out, n, stream) and (bits, acc, out, w, n, stream)
     "dvc_bf16_encode": [_P, _P, _L, _P],
     "dvc_bf16_decode_axpy": [_P, _P, _P, _F, _L, _P],
+    # (bits, meta, recv, dst, col0, shard, tile_elems, n_slots, n_chunks, last, stream)
+    "dvc_ring_fold": [_P] * 4 + [_L] * 3 + [_I] * 3 + [_P],
+    # (src0, dst0, src0_ld, src1, dst1, src1_ld, rows, cols, dst_ld, stream)
+    "dvc_ring_allgather": [_P, _P, _L, _P, _P, _L, _L, _L, _L, _P],
+    "dvc_enable_peer_access": [_I, _I],
 }
 
 

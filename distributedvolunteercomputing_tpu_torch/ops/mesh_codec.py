@@ -27,18 +27,28 @@ The host codec (``native.f32_to_bf16``) agrees on every finite value, on
 ``swarm/agg_stream.py`` and ``swarm/averager.py``:
 
 - ``backend``: ``"device"`` (the reference's ``"mesh"``) runs the codec ops as
-  torch on the codec's device — the kernels on a CUDA device, the plain
+  torch on the codec's ranks — the kernels on CUDA devices, the plain
   versions on the CPU (how the CPU tests drive the folder logic); ``"host"``
   delegates to ``native`` / ``ops.robust`` numpy; ``"auto"`` is device on CUDA
   and host otherwise. Chosen by argument only: no environment variable is read.
-- One device per volunteer; the reference's multi-chip codec mesh and its
-  ring collective (K6/K7, ``ops/mesh_collective.py``) are not ported.
+- Ranks: one device by default (``device``, the card unless "cpu" is asked
+  for), or one rank per device of the volunteer's ``mesh``
+  (``parallel/mesh.py``), flattened as the reference's ``_ensure_mesh``
+  flattens it. A mesh may name a card more than once (ranks that share it).
+  Flat buffers split over the ranks as the reference's ``_put_flat`` splits
+  them: K4 runs once per rank on its slice, and the window folds on column
+  slices. The mean folder keeps its accumulator element-split,
+  ``[n_tiles, tile_elems / nd]`` on each rank. ``collective``: "ring" folds a
+  bf16 round through ``ops/mesh_collective.py`` (K6/K7, ranks pull from their
+  ring neighbour, one CUDA stream each), "off" keeps the staged folder, and
+  "auto" means ring when the codec has two or more CUDA ranks. One rank is
+  the one-device codec: no extra stream, everything on the current one.
 - No degrade: the backend is fixed at construction. A device op that fails
   (a kernel that does not launch, a failed copy, ``inject_failure``, the chaos
   hook) raises out of the op, so the round fails and the trainer keeps its
   local params; the next round runs on the device again. The reference
-  instead moves a failed codec to the host for good. A failed build raises
-  from ``configure``.
+  instead moves a failed codec to the host for good. A failed build, or two
+  cards of a ring that cannot reach each other, raises from ``configure``.
 """
 
 from __future__ import annotations
@@ -46,7 +56,7 @@ from __future__ import annotations
 import threading
 import time
 import warnings
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,7 +115,9 @@ def decode_axpy_plain(acc: torch.Tensor, bits: torch.Tensor, w: float) -> torch.
 # ---------------------------------------------------------------------------
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args, counts: Optional[Dict[str, int]] = None) -> None:
+    """Launch ``dvc_<name>`` on ``device``'s current stream and count it in
+    ``counts`` (this module's ``LAUNCHES`` by default)."""
     from distributedvolunteercomputing_tpu_torch.ops import _build
 
     lib = _build.load_library()
@@ -114,8 +126,9 @@ def _launch(name: str, device: torch.device, *args) -> None:
         err = getattr(lib, f"dvc_{name}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}: {lib.dvc_error_string(err).decode()}")
+    counts = LAUNCHES if counts is None else counts
     with _launch_lock:
-        LAUNCHES[name] += 1
+        counts[name] += 1
 
 
 def _check_flat(name: str, x: torch.Tensor, dtype: torch.dtype, device: torch.device) -> None:
@@ -169,32 +182,63 @@ def bf16_decode_axpy(
 # ---------------------------------------------------------------------------
 
 
-def _host_u16(bits: torch.Tensor) -> np.ndarray:
-    return bits.cpu().numpy().view(np.uint16)
-
-
 class MeshCodec:
-    """One volunteer's codec and fold engine on its device (or the host).
+    """One volunteer's codec and fold engine on its ranks (or the host).
 
-    ``device``: the volunteer's ``torch.device`` (``None`` = the card, as
-    everywhere in the port). ``backend``: "auto" | "device" | "host"."""
+    ``device``: the volunteer's ``torch.device`` when it has no mesh (``None``
+    = the card, as everywhere in the port). ``mesh``: the volunteer's
+    ``parallel.mesh.Mesh``; its devices, flattened, are the codec's ranks.
+    ``backend``: "auto" | "device" | "host". ``collective``: "auto" | "ring"
+    | "off"."""
 
-    def __init__(self, device: DeviceLike = None, backend: str = "auto"):
+    def __init__(
+        self,
+        device: DeviceLike = None,
+        backend: str = "auto",
+        mesh: Optional[Any] = None,
+        collective: str = "auto",
+    ):
         if backend not in ("auto", "device", "host"):
             raise ValueError(f"unknown mesh-codec backend {backend!r}")
+        if collective not in ("auto", "ring", "off"):
+            raise ValueError(f"unknown mesh collective {collective!r}")
         self._lock = threading.Lock()
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.ranks: List[torch.device] = [resolve_device(device)]
+        else:
+            self.ranks = [_indexed(resolve_device(d)) for d in mesh.flat()]
+            if device is not None and _indexed(resolve_device(device)) != self.ranks[0]:
+                raise ValueError(f"device {device} is not the mesh's first device {self.ranks[0]}")
+            if len({d.type for d in self.ranks}) != 1:
+                raise ValueError(f"a codec mesh mixes device types: {self.ranks}")
+        self.device = self.ranks[0]
+        self.nd = len(self.ranks)
+        cuda = self.device.type == "cuda"
         if backend == "auto":
-            backend = "device" if self.device.type == "cuda" else "host"
+            backend = "device" if cuda else "host"
         self.backend = backend
-        if backend == "device" and self.device.type == "cuda":
+        if collective == "auto":
+            collective = "ring" if cuda and self.nd >= 2 else "off"
+        self.collective = collective
+        # One stream per rank for the ring's steps; a one-rank codec runs
+        # everything on the current stream.
+        self.streams: List[Optional[torch.cuda.Stream]] = [
+            torch.cuda.Stream(device=d) if cuda and self.nd >= 2 else None for d in self.ranks
+        ]
+        if backend == "device" and cuda:
             from distributedvolunteercomputing_tpu_torch.ops import _build
 
             _build.load_library()  # a failed build raises here, not mid-round
+            if collective == "ring":
+                _enable_ring_peers(self.ranks)
         self._fail_injected = 0
         self.ops_mesh = 0
         self.ops_host = 0
         self.device_s = 0.0
+        # Ring gauges (ops/mesh_collective.py): flushes folded on K6 and
+        # results gathered on K7, over every folder of this codec.
+        self.ring_flushes = 0
+        self.ring_results = 0
 
     @property
     def active(self) -> bool:
@@ -205,9 +249,13 @@ class MeshCodec:
         return {
             "backend": self.backend,
             "device": str(self.device),
+            "devices": self.nd,
+            "collective": self.collective,
             "ops_mesh": int(self.ops_mesh),
             "ops_host": int(self.ops_host),
             "device_s": round(self.device_s, 6),
+            "ring_flushes": int(self.ring_flushes),
+            "ring_results": int(self.ring_results),
         }
 
     # -- device ops --------------------------------------------------------
@@ -237,22 +285,41 @@ class MeshCodec:
             return host()
         return self._device(op)
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
+    def _put(self, arr: np.ndarray, rank: int = 0) -> torch.Tensor:
         arr = np.ascontiguousarray(arr)
         with warnings.catch_warnings():
             # Wire bytes arrive as read-only buffers; the codec only reads them.
             warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-            return torch.from_numpy(arr).to(self.device)
+            return torch.from_numpy(arr).to(self.ranks[rank])
+
+    def _splits(self, n: int) -> List[Tuple[int, int]]:
+        """Rank r's slice [lo, hi) of n elements: ceil(n / nd) each, the
+        last ones short or empty (the reference's ``_put_flat`` padding)."""
+        per = -(-n // self.nd)
+        return [(min(r * per, n), min((r + 1) * per, n)) for r in range(self.nd)]
+
+    def _map_cols(self, arr: np.ndarray, fn: Callable[[torch.Tensor], torch.Tensor]) -> np.ndarray:
+        """``fn`` on each rank's slice of ``arr``'s last axis, the results
+        joined on the host along the last axis (the reference's
+        ``shard_map`` over the codec axis). Every rank's op is queued before
+        the first result is fetched."""
+        outs = [
+            fn(self._put(arr[..., lo:hi], r))
+            for r, (lo, hi) in enumerate(self._splits(arr.shape[-1]))
+            if hi > lo or r == 0
+        ]
+        parts = [o.cpu().numpy() for o in outs]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=-1)
 
     # -- bf16 wire codec ---------------------------------------------------
 
     def encode_bf16(self, buf: np.ndarray) -> np.ndarray:
-        """float32 [n] -> uint16 [n] bf16 bit patterns (K4 on the card)."""
+        """float32 [n] -> uint16 [n] bf16 bit patterns (K4 on each rank's slice)."""
         from distributedvolunteercomputing_tpu_torch import native
 
         buf = np.ascontiguousarray(buf, np.float32).ravel()
         return self._run(
-            lambda: _host_u16(bf16_encode(self._put(buf))), lambda: native.f32_to_bf16(buf)
+            lambda: self._map_cols(buf, bf16_encode).view(np.uint16), lambda: native.f32_to_bf16(buf)
         )
 
     def decode_bf16(self, bits: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
@@ -262,7 +329,7 @@ class MeshCodec:
         bits = np.ascontiguousarray(bits, np.uint16).ravel()
 
         def dev() -> np.ndarray:
-            res = widen_bf16(self._put(bits.view(np.int16))).cpu().numpy()
+            res = self._map_cols(bits.view(np.int16), widen_bf16)
             if out is not None:
                 out[: res.size] = res
                 return out[: res.size]
@@ -274,7 +341,8 @@ class MeshCodec:
 
     def aggregate(self, stack: np.ndarray, method: str, **kw) -> np.ndarray:
         """``ops.robust.aggregate`` with mean, median and trimmed_mean on the
-        device; every other method takes the host path unchanged."""
+        device, each rank folding its column slice; every other method takes
+        the host path unchanged."""
         from distributedvolunteercomputing_tpu_torch.ops import robust
 
         if method not in ("mean", "median", "trimmed_mean") or stack.ndim != 2:
@@ -293,16 +361,18 @@ class MeshCodec:
             return robust.aggregate(stack, method, **kw)
 
         def dev() -> np.ndarray:
-            s = self._put(np.asarray(stack, np.float32))
+            s = np.asarray(stack, np.float32)
             if method == "mean":
                 w = kw.get("weights")
-                wn = (
-                    np.asarray(w, np.float64) / np.asarray(w, np.float64).sum()
-                    if w is not None
-                    else np.full(n, 1.0 / n)
-                ).astype(np.float32)
-                return (s * self._put(wn)[:, None]).sum(dim=0).cpu().numpy()
-            return _window_fold(s, method, trim).cpu().numpy()
+                wn = torch.from_numpy(
+                    (
+                        np.asarray(w, np.float64) / np.asarray(w, np.float64).sum()
+                        if w is not None
+                        else np.full(n, 1.0 / n)
+                    ).astype(np.float32)
+                )
+                return self._map_cols(s, lambda x: (x * wn.to(x.device)[:, None]).sum(dim=0))
+            return self._map_cols(s, lambda x: _window_fold(x, method, trim))
 
         return self._run(dev, lambda: robust.aggregate(stack, method, **kw))
 
@@ -319,7 +389,7 @@ class MeshCodec:
             self.ops_host += 1
             return host()
         dec = self._device(
-            lambda: widen_bf16(self._put(np.asarray(bits_stack, np.uint16).view(np.int16))).cpu().numpy()
+            lambda: self._map_cols(np.asarray(bits_stack, np.uint16).view(np.int16), widen_bf16)
         )
         return self.aggregate(dec, method, **kw)
 
@@ -328,10 +398,41 @@ class MeshCodec:
     def mean_folder(
         self, n_elems: int, tile_elems: int, n_tiles: int, wire: str
     ) -> Optional["MeshMeanFolder"]:
-        """A device mean folder for one round, or None on the host backend."""
-        if not self.active:
+        """A device mean folder for one round: None on the host backend or
+        when a tile does not split over the ranks; the ring folder
+        (``ops/mesh_collective.py``) on the bf16 wire with the ring selected
+        and two or more ranks; the staged folder otherwise."""
+        if not self.active or tile_elems % self.nd:
             return None
+        if self.collective == "ring" and wire == "bf16" and self.nd >= 2:
+            from distributedvolunteercomputing_tpu_torch.ops import mesh_collective
+
+            return mesh_collective.RingMeanFolder(self, n_elems, tile_elems, n_tiles, wire)
         return MeshMeanFolder(self, n_elems, tile_elems, n_tiles, wire)
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` -> ``cuda:<current>``, so ranks compare by card."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _enable_ring_peers(ranks: List[torch.device]) -> None:
+    """Let each rank read its left neighbour's memory when the two are
+    distinct cards (K6/K7 pull from the left); raises when they cannot."""
+    from distributedvolunteercomputing_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    for d, dev in enumerate(ranks):
+        left = ranks[d - 1]
+        if left != dev:
+            err = lib.dvc_enable_peer_access(dev.index, left.index)
+            if err != 0:
+                raise RuntimeError(
+                    f"{dev} cannot read {left} over peer memory (CUDA error {err}: "
+                    f"{lib.dvc_error_string(err).decode()}); the ring needs peer access"
+                )
 
 
 def _window_fold(s: torch.Tensor, method: str, trim: Optional[int]) -> torch.Tensor:
@@ -356,25 +457,33 @@ def _window_fold(s: torch.Tensor, method: str, trim: Optional[int]) -> torch.Ten
 class MeshMeanFolder:
     """Device-resident mean accumulator for one streaming round.
 
-    Arriving wire chunks stage as raw bytes (no decode on the frame-reader
-    thread) and fold in batches of ``FOLDER_FLUSH_BYTES``: one host-to-device
-    copy of the batch, then, on the bf16 wire, one K5 launch per chunk, in
-    staging order, on the accumulator row ``acc[tile, :len]`` — the
-    reference's ``a.at[t].add(w * widen(x))`` with duplicate tiles folded one
-    after the other. The f32 wire and dense feeds are ``acc.add_(x, alpha=w)``.
-    Per-tile weight tallies stay in the aggregator. ``result()`` flushes the
-    tail and pulls the accumulator to the host once. A failed fold raises
-    (from the flush worker, so the aggregator's finalize fails the round)."""
+    The accumulator is element-split over the codec's ranks: rank r holds
+    ``[n_tiles, shard]`` (``shard = tile_elems / nd``), the columns
+    ``[r * shard, (r + 1) * shard)`` of every tile. Arriving wire chunks
+    stage as raw bytes (no decode on the frame-reader thread) and fold in
+    batches of ``FOLDER_FLUSH_BYTES``: one host-to-device copy of each rank's
+    column slice of the batch, then, on the bf16 wire, one K5 launch per
+    chunk per rank, in staging order, on the accumulator row
+    ``acc_r[tile, :len]`` — the reference's ``a.at[t].add(w * widen(x))``
+    with duplicate tiles folded one after the other. The f32 wire and dense
+    feeds are ``acc.add_(x, alpha=w)``. Per-tile weight tallies stay in the
+    aggregator. ``result()`` flushes the tail and gathers the shards to the
+    host. A failed fold raises (from the flush worker, so the aggregator's
+    finalize fails the round)."""
 
     kind = "staged"
 
     def __init__(self, codec: MeshCodec, n_elems: int, tile_elems: int, n_tiles: int, wire: str):
         if wire not in ("f32", "bf16"):
             raise ValueError(f"mean folder needs an elementwise wire, got {wire!r}")
+        if tile_elems % codec.nd:
+            raise ValueError(f"tile_elems {tile_elems} does not split over {codec.nd} ranks")
         self.codec = codec
         self.n_elems = int(n_elems)
         self.tile_elems = int(tile_elems)
         self.n_tiles = int(n_tiles)
+        self.nd = codec.nd
+        self.shard = self.tile_elems // self.nd
         self.wire = wire
         self.esz = 4 if wire == "f32" else 2
         self._lock = threading.Lock()
@@ -384,7 +493,7 @@ class MeshMeanFolder:
         # adds it to its peak-held gauge).
         self.peak_staged_bytes = 0
         self.flush_bytes = FOLDER_FLUSH_BYTES
-        self._acc: Optional[torch.Tensor] = None  # device [n_tiles, tile_elems] f32, lazy
+        self._accs: Optional[List[torch.Tensor]] = None  # per rank [n_tiles, shard] f32, lazy
         self.flushes = 0
 
     # -- staging (called under the aggregator's lock) ----------------------
@@ -405,20 +514,29 @@ class MeshMeanFolder:
             raise ValueError(f"dense feed size {buf.size} != {self.n_elems}")
 
         def dev() -> None:
-            x = self.codec._put(buf)
+            if self.nd == 1:
+                xs = [self.codec._put(buf)]
+            else:
+                x = np.zeros(self.n_tiles * self.tile_elems, np.float32)
+                x[: self.n_elems] = buf
+                x = x.reshape(self.n_tiles, self.tile_elems)
+                xs = [self.codec._put(x[:, r * self.shard : (r + 1) * self.shard], r) for r in range(self.nd)]
             with self._lock:
-                self._device_acc().view(-1)[: self.n_elems].add_(x, alpha=float(weight))
+                for acc, xr in zip(self._device_accs(), xs):
+                    dst = acc.view(-1)[: self.n_elems] if self.nd == 1 else acc
+                    dst.add_(xr, alpha=float(weight))
 
         self.codec._device(dev)
 
     # -- device plumbing ---------------------------------------------------
 
-    def _device_acc(self) -> torch.Tensor:
-        if self._acc is None:
-            self._acc = torch.zeros(
-                (self.n_tiles, self.tile_elems), dtype=torch.float32, device=self.codec.device
-            )
-        return self._acc
+    def _device_accs(self) -> List[torch.Tensor]:
+        if self._accs is None:
+            self._accs = [
+                torch.zeros((self.n_tiles, self.shard), dtype=torch.float32, device=dev)
+                for dev in self.codec.ranks
+            ]
+        return self._accs
 
     # -- folding -----------------------------------------------------------
 
@@ -428,24 +546,33 @@ class MeshMeanFolder:
             self._staged_bytes = 0
         return batch
 
-    def _flush_dev(self, batch: List[Tuple[int, float, bytes]]) -> None:
-        """One copy of the batch to the device ([k, row] rows, each chunk at
-        the start of its own row so every row is 16-byte aligned), then one
-        fold per chunk in staging order."""
-        row_bytes = self.tile_elems * self.esz
-        raw = np.zeros((len(batch), row_bytes), np.uint8)
+    def _raw_rows(self, batch: List[Tuple[int, float, bytes]]) -> np.ndarray:
+        """The batch as [k, tile_elems * esz] bytes, each chunk at the start
+        of its own row (zero-padded), so every row is 16-byte aligned."""
+        raw = np.zeros((len(batch), self.tile_elems * self.esz), np.uint8)
         for i, (_, _, data) in enumerate(batch):
             raw[i, : len(data)] = np.frombuffer(data, np.uint8)
-        rows = self.codec._put(raw).view(torch.int16 if self.wire == "bf16" else torch.float32)
+        return raw
+
+    def _flush_dev(self, batch: List[Tuple[int, float, bytes]]) -> None:
+        """One copy of each rank's column slice of the batch to its device,
+        then one fold per chunk per rank in staging order."""
+        rows = self._raw_rows(batch)
+        width = self.shard * self.esz
+        dtype = torch.int16 if self.wire == "bf16" else torch.float32
+        parts = [self.codec._put(rows[:, r * width : (r + 1) * width], r).view(dtype) for r in range(self.nd)]
         with self._lock:
-            acc = self._device_acc()
-            for i, (tile, w, data) in enumerate(batch):
-                n = len(data) // self.esz
-                dst = acc[tile, :n]
-                if self.wire == "bf16":
-                    bf16_decode_axpy(dst, rows[i, :n], w, out=dst)
-                else:
-                    dst.add_(rows[i, :n], alpha=w)
+            for r, acc in enumerate(self._device_accs()):
+                lo = r * self.shard
+                for i, (tile, w, data) in enumerate(batch):
+                    n = min(len(data) // self.esz - lo, self.shard)
+                    if n <= 0:
+                        continue  # a short tail chunk ends before this rank's columns
+                    dst = acc[tile, :n]
+                    if self.wire == "bf16":
+                        bf16_decode_axpy(dst, parts[r][i, :n], w, out=dst)
+                    else:
+                        dst.add_(parts[r][i, :n], alpha=w)
 
     def flush(self) -> None:
         """Fold every staged chunk (worker-thread context)."""
@@ -455,16 +582,22 @@ class MeshMeanFolder:
         self.flushes += 1
         self.codec._device(lambda: self._flush_dev(batch))
 
+    def _take_accs(self) -> Optional[List[torch.Tensor]]:
+        with self._lock:
+            accs, self._accs = self._accs, None
+        return accs
+
     def result(self) -> np.ndarray:
         """Flush the tail and return the flat RAW accumulator [n_elems]
         (per-tile re-normalization stays with the aggregator)."""
         self.flush()
-        with self._lock:
-            if self._acc is None:
-                return np.zeros(self.n_elems, np.float32)
-            out = self._acc.view(-1)[: self.n_elems].cpu().numpy().copy()
-            self._acc = None
-            return out
+        accs = self._take_accs()
+        if accs is None:
+            return np.zeros(self.n_elems, np.float32)
+        if self.nd == 1:
+            return accs[0].view(-1)[: self.n_elems].cpu().numpy().copy()
+        full = np.concatenate([a.cpu().numpy() for a in accs], axis=1)
+        return full.reshape(-1)[: self.n_elems].copy()
 
     @property
     def device_bytes(self) -> int:
@@ -491,11 +624,14 @@ def get_default() -> MeshCodec:
     return _default
 
 
-def configure(device: DeviceLike = None, backend: str = "auto") -> MeshCodec:
+def configure(
+    device: DeviceLike = None, backend: str = "auto", mesh: Optional[Any] = None, collective: str = "auto"
+) -> MeshCodec:
     """Select this volunteer's codec at startup, on its device (``None`` =
-    the card). Builds the kernels when the codec resolves to a CUDA device."""
+    the card) or its mesh's ranks. Builds the kernels when the codec resolves
+    to CUDA devices, and enables peer access for a ring across cards."""
     global _default
-    codec = MeshCodec(device=device, backend=backend)
+    codec = MeshCodec(device=device, backend=backend, mesh=mesh, collective=collective)
     with _default_lock:
         _default = codec
     return codec

@@ -7,12 +7,17 @@ blocking train loop runs in a worker thread and bridges into the loop once
 per averaging round through ``run_coroutine_threadsafe``.
 
 Ported so far: ``averaging`` "none" or "sync" on the f32 or bf16 wire, the
-step cadence, blocking or overlapped rounds. The volunteer builds its swarm
-services, then selects the codec on its own device (``mesh_codec.configure``:
-the bf16 encode and the leader's fold run as CUDA kernels on the card), then
-the trainer. The coordinator, state sync, checkpoints, the resilience layer
-and controller, chaos hooks, group schedules and sharding come with later
-slices; ``VolunteerConfig`` does not accept them yet.
+step cadence, blocking or overlapped rounds, and a local data-parallel mesh.
+The volunteer builds its swarm services, then its mesh (``mesh``: the
+reference's "dp=N" spec over the visible cards, or a prebuilt port ``Mesh``,
+which may put several ranks on one card), then selects the codec on its
+device or its mesh's ranks (``mesh_codec.configure``: the bf16 encode and the
+leader's fold run as CUDA kernels on the card; with two or more ranks and
+``mesh_collective`` "ring" or "auto" the fold is the ring, K6/K7), then the
+trainer, data-parallel over the mesh. The coordinator, state sync,
+checkpoints, the resilience layer and controller, chaos hooks, group
+schedules and sharding come with later slices; ``VolunteerConfig`` does not
+accept them yet.
 """
 
 from __future__ import annotations
@@ -22,10 +27,11 @@ import dataclasses
 import signal
 import threading
 import uuid
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 from distributedvolunteercomputing_tpu_torch.models import get_model
 from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mesh_codec_mod
+from distributedvolunteercomputing_tpu_torch.parallel.mesh import Mesh, make_mesh, parse_mesh_spec
 from distributedvolunteercomputing_tpu_torch.swarm.averager import make_averager
 from distributedvolunteercomputing_tpu_torch.swarm.dht import DHTNode
 from distributedvolunteercomputing_tpu_torch.swarm.membership import SwarmMembership
@@ -67,6 +73,13 @@ class VolunteerConfig:
     # The card unless "cpu" is asked for; raises when there is no card.
     device: DeviceLike = None
     metrics_path: Optional[str] = None
+    # Local mesh: the reference's "dp=N" spec over the first N visible cards
+    # (dp only), or a port ``Mesh`` (whose ranks may share a card); "" = one
+    # device. The swarm still sees one volunteer either way.
+    mesh: Union[str, Mesh] = ""
+    # The leader's bf16 mean fold over the mesh: "ring" (K6/K7), "off" (the
+    # staged per-rank fold), "auto" = ring with two or more CUDA ranks.
+    mesh_collective: str = "auto"
 
     def __post_init__(self):
         if not self.peer_id:
@@ -77,6 +90,12 @@ class VolunteerConfig:
             raise ValueError(f"unknown averaging {self.averaging!r}")
         if self.wire not in ("f32", "bf16"):
             raise NotImplementedError(f"wire {self.wire!r} is not ported yet; ported: f32, bf16")
+        if isinstance(self.mesh, str) and self.mesh:
+            axes = parse_mesh_spec(self.mesh)
+            if any(v > 1 for k, v in axes.items() if k != "dp"):
+                raise NotImplementedError(f"mesh {self.mesh!r}: only dp is ported yet")
+        if self.mesh_collective not in ("auto", "ring", "off"):
+            raise ValueError(f"unknown mesh collective {self.mesh_collective!r}")
 
 
 def _parse_addrs(spec: Optional[str]) -> list:
@@ -160,10 +179,18 @@ class Volunteer:
                 wire=cfg.wire, telemetry=self.telemetry, namespace=namespace,
             )
         bundle = get_model(cfg.model, **cfg.model_overrides)
+        mesh = cfg.mesh if isinstance(cfg.mesh, Mesh) else make_mesh(**parse_mesh_spec(cfg.mesh)) if cfg.mesh else None
         # The averager resolves the process default lazily, so configuring
         # here covers the averager built above.
-        codec = mesh_codec_mod.configure(device=cfg.device)
-        log.info("swarm data path: %s backend on %s", codec.backend, codec.device)
+        codec = mesh_codec_mod.configure(
+            device=None if mesh is not None else cfg.device,
+            mesh=mesh,
+            collective=cfg.mesh_collective,
+        )
+        log.info(
+            "swarm data path: %s backend on %d rank(s) from %s, collective %s",
+            codec.backend, codec.nd, codec.device, codec.collective,
+        )
         self.trainer = Trainer(
             bundle,
             batch_size=cfg.batch_size,
@@ -175,6 +202,7 @@ class Volunteer:
             metrics_path=cfg.metrics_path,
             volunteer_id=cfg.peer_id,
             device=cfg.device,
+            mesh=mesh,
             averager=self._averager_callback if self.averager is not None else None,
             average_every=cfg.average_every,
             overlap=cfg.overlap,

@@ -5,7 +5,10 @@ data -> device -> fwd/bwd -> local optimizer step, and every
 ``average_every`` steps a params-mode averaging round through an injected
 callback: blocking (the round's result replaces the params) or overlapped
 with the next steps (Moshpit merge ``averaged + (current - snapshot)``).
-Gradient averaging, the wall-clock cadence, the outer optimizer, meshes,
+With a ``mesh`` (``parallel/mesh.py``) the step is data-parallel over its dp
+ranks (``parallel/train_step.py``): the averager reads rank 0's params, and a
+merge writes the averaged params back to every rank. Gradient averaging, the
+wall-clock cadence, the outer optimizer, FSDP and the other mesh axes,
 multi-step calls and eval come with later slices of the port; the
 constructor does not accept them yet.
 """
@@ -71,6 +74,9 @@ class Trainer:
         # instead of merged (0 = no bound).
         overlap: bool = False,
         max_staleness: int = 0,
+        # The volunteer's local mesh (dp only): a full replica on each rank,
+        # the batch split over them. None = one device.
+        mesh: Optional[Any] = None,
     ):
         if accum_steps < 1 or batch_size % accum_steps != 0:
             raise ValueError(
@@ -78,7 +84,14 @@ class Trainer:
             )
         if average_every < 1:
             raise ValueError(f"average_every must be >= 1, got {average_every}")
-        self.device = resolve_device(device)
+        if mesh is not None:
+            ranks = [resolve_device(d) for d in mesh.flat()]
+            if device is not None and resolve_device(device).type != ranks[0].type:
+                raise ValueError(f"device {device} differs from the mesh's first device {ranks[0]}")
+            self.device = ranks[0]
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
         self.bundle = bundle
         self.batch_size = batch_size
         # ``seed`` is per-volunteer (data order, step rng); ``init_seed`` is
@@ -89,7 +102,19 @@ class Trainer:
             params = cast_floating(params, param_dtype)
         step_rng = torch.Generator(device=self.device).manual_seed(seed)
         self.state = TrainState.create(params, self.tx, step_rng)
-        self._step_fn = make_train_step(bundle.loss_fn, self.tx, accum_steps=accum_steps)
+        # Every replica the params live in (one without a mesh).
+        self._replicas = [self.state]
+        if mesh is not None:
+            from distributedvolunteercomputing_tpu_torch.parallel.train_step import (
+                make_sharded_train_step,
+                shard_train_state,
+            )
+
+            self.state, _ = shard_train_state(self.state, mesh)
+            self._replicas = self.state.replicas
+            self._step_fn = make_sharded_train_step(bundle.loss_fn, self.tx, mesh, accum_steps=accum_steps)
+        else:
+            self._step_fn = make_train_step(bundle.loss_fn, self.tx, accum_steps=accum_steps)
         # The synthetic stream is drawn on the host and moved to the device.
         self._data_gen = torch.Generator().manual_seed(seed)
         self._data = data
@@ -115,7 +140,12 @@ class Trainer:
         while True:
             yield self.bundle.make_batch(self._data_gen, self.batch_size)
 
-    def _to_device(self, batch: Dict[str, Any]) -> Batch:
+    def _to_device(self, batch: Dict[str, Any]) -> Any:
+        """The batch on the device, or split over the mesh's dp ranks."""
+        if self.mesh is not None:
+            from distributedvolunteercomputing_tpu_torch.parallel.train_step import put_batch
+
+            return put_batch(batch, self.mesh)
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
 
     def _record_target_crossed(self, cross_step: int, target_loss: float, t_start: float) -> Tuple[int, float]:
@@ -141,12 +171,15 @@ class Trainer:
         return tree_unflatten(treedef, out)
 
     def _swap_params(self, new_params: Any) -> None:
-        """Copy a host tree of the full params into the live params in place
-        (the optimizer's moments keep their tensors) — the ONE place a merge
-        becomes live state, shared by the blocking and overlapped paths."""
+        """Copy a host tree of the full params into the live params of every
+        replica in place (the optimizer's moments keep their tensors) — the
+        ONE place a merge becomes live state, shared by the blocking and
+        overlapped paths."""
         with torch.no_grad():
-            for p, v in zip(tree_leaves(self.state.params), tree_leaves(new_params)):
-                p.copy_(torch.from_numpy(np.ascontiguousarray(v, np.float32)))
+            host = [torch.from_numpy(np.ascontiguousarray(v, np.float32)) for v in tree_leaves(new_params)]
+            for replica in self._replicas:
+                for p, v in zip(tree_leaves(replica.params), host):
+                    p.copy_(v)
 
     def _note_window_progress(self, step_no: int) -> None:
         if self._last_merge_step is not None:

@@ -267,3 +267,64 @@ def test_unported_modes_and_wires_raise():
         await asyncio.wait_for(t.close(), 5)
 
     run(main())
+
+
+def test_two_mesh_volunteers_fold_on_the_ring(monkeypatch):
+    """Two CPU volunteers, each training the tiny gpt2 data-parallel on a
+    dp=2 mesh with the ring collective: the leader's rounds fold through
+    RingMeanFolder, and each committed round's result is the weighted mean of
+    the two payloads within bf16 rounding. "auto" puts a CPU codec on the
+    host, so the codec is forced onto its (CPU) ranks, where the ring's plain
+    versions run."""
+    from distributedvolunteercomputing_tpu_torch.parallel.mesh import make_mesh
+    from distributedvolunteercomputing_tpu_torch.swarm.volunteer import Volunteer, VolunteerConfig
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer
+
+    tiny = dict(n_layers=2, d_model=64, n_heads=2, d_ff=128, vocab=256, max_len=32, xent_chunk=16, remat=False)
+    base = dict(
+        model="gpt2_small", model_overrides=tiny, batch_size=4, averaging="sync", wire="bf16", average_every=2,
+        overlap=False, steps=4, device="cpu", join_timeout=5.0, gather_timeout=5.0,
+        mesh=make_mesh(dp=2, devices=["cpu", "cpu"]), mesh_collective="ring",
+    )
+    configure = mc.configure
+    monkeypatch.setattr(mc, "configure", lambda **kw: configure(**{**kw, "backend": "device"}))
+    rounds = [[], []]
+
+    def recording(vol, i):
+        inner = vol._averager_callback
+
+        def cb(params, step):
+            result = inner(params, step)
+            if result is not None:
+                weight = vol.cfg.batch_size * max(1, vol.trainer.steps_since_merge)
+                rounds[i].append((step, weight, flatten_to_buffer(params)[0], flatten_to_buffer(result)[0]))
+            return result
+
+        vol.trainer.averager = cb
+
+    async def main():
+        v0 = Volunteer(VolunteerConfig(peer_id="v0", seed=1, **base))
+        await v0.start()
+        v1 = Volunteer(VolunteerConfig(peer_id="v1", seed=2, bootstrap="%s:%d" % v0.transport.addr, **base))
+        try:
+            await v1.start()
+            recording(v0, 0), recording(v1, 1)
+            return await asyncio.gather(v0.train(), v1.train())
+        finally:
+            await asyncio.gather(v0.stop(), v1.stop())
+
+    summaries = run(main(), timeout=60)
+    assert all(s["rounds_ok"] >= 1 and np.isfinite(s["final_loss"]) and s["steps"] == 4 for s in summaries)
+    assert any(s.get("aggregation", {}).get("folder_kind") == "ring" for s in summaries)
+    codec = summaries[0]["mesh_codec"]
+    assert codec["devices"] == 2 and codec["collective"] == "ring" and codec["ops_host"] == 0
+    assert codec["ring_results"] >= 1
+    by_step = [{r[0]: r for r in rs} for rs in rounds]
+    common = sorted(set(by_step[0]) & set(by_step[1]))
+    assert common
+    for step in common:
+        (_, w0, x0, r0), (_, w1, x1, r1) = by_step[0][step], by_step[1][step]
+        want = (w0 * x0.astype(np.float64) + w1 * x1.astype(np.float64)) / (w0 + w1)
+        scale = np.maximum(np.abs(x0), np.abs(x1))
+        for r in (r0, r1):
+            _bf16_close(r.astype(np.float64), want, scale, rounds=2)

@@ -28,10 +28,13 @@ def _forbidden(name: str) -> bool:
     return root in FORBIDDEN
 
 
-# The modules of the averaging slice: the scans below must reach them.
+# The modules of the averaging and ring slices: the scans below must reach them.
 SWARM_SLICE = (
     "distributedvolunteercomputing_tpu_torch.native",
     "distributedvolunteercomputing_tpu_torch.ops.mesh_codec",
+    "distributedvolunteercomputing_tpu_torch.ops.mesh_collective",
+    "distributedvolunteercomputing_tpu_torch.parallel.mesh",
+    "distributedvolunteercomputing_tpu_torch.parallel.train_step",
     "distributedvolunteercomputing_tpu_torch.ops.robust",
     "distributedvolunteercomputing_tpu_torch.swarm.agg_stream",
     "distributedvolunteercomputing_tpu_torch.swarm.averager",
@@ -69,7 +72,8 @@ def test_import_loads_no_jax():
     assert not leaked, f"port imports pulled in {leaked[:10]}"
 
 
-SCRIPTS = [REPO / "chip_smoke.py", REPO / "experiments" / "torch_step_profile.py"]
+SCRIPTS = [REPO / "chip_smoke.py"] + [REPO / "experiments" / f for f in (
+    "torch_step_profile.py", "torch_ring_cards.py", "torch_dp_trace.py")]
 
 
 @pytest.mark.parametrize("path", SCRIPTS + [p for _, p in _port_modules()], ids=lambda p: p.name)

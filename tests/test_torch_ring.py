@@ -1,0 +1,302 @@
+"""The port's ring fold (``ops/mesh_collective.py``) against the JAX package's.
+
+The reference's Pallas ring kernels do not run in interpret mode under the
+installed jax (``pl.load`` / ``pl.store`` are gone), so the port is held
+against the three folds of the reference that do run on its 8 virtual CPU
+devices: the xla-lowered ``RingMeanFolder`` (pallas off: an ``all_to_all`` of
+the raw bits, then a column fold, the same function as K6), the staged
+``MeshMeanFolder`` on the same mesh, and ``native``'s host fold. The port's
+ranks are CPU devices, so its kernel wrappers take their plain versions.
+Limits: rtol 1e-5 / atol 1e-6, the reference's own for its ring
+(``tests/test_mesh_collective.py``); the ring adds in ring order, the others
+in batch order. K7's plain all-gather is bit-equal to the reference's.
+"""
+
+import asyncio
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from distributedvolunteercomputing_tpu import native as jax_native
+from distributedvolunteercomputing_tpu.ops import mesh_codec as jax_mc
+from distributedvolunteercomputing_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from distributedvolunteercomputing_tpu_torch import native
+from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+from distributedvolunteercomputing_tpu_torch.ops import mesh_collective as mcol
+from distributedvolunteercomputing_tpu_torch.parallel.mesh import make_mesh
+from distributedvolunteercomputing_tpu_torch.swarm.agg_stream import StreamingAggregator, TilePool
+from distributedvolunteercomputing_tpu_torch.swarm.averager import SyncAverager
+from distributedvolunteercomputing_tpu_torch.swarm.dht import DHTNode
+from distributedvolunteercomputing_tpu_torch.swarm.membership import SwarmMembership
+from distributedvolunteercomputing_tpu_torch.swarm.transport import Transport
+
+RTOL, ATOL = 1e-5, 1e-6
+CONFIGS = [(2048, 4, 8000), (1024, 3, 3010), (512, 7, 3500)]  # (tile, n_tiles, n_elems): ragged tails
+WEIGHTS = [0.5, 1.75, 0.0, 2.25, 1.0]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_built():
+    assert native.ensure_built() and jax_native.ensure_built()
+
+
+def port_codec(nd, collective="ring"):
+    return mc.MeshCodec(backend="device", mesh=make_mesh(dp=nd, devices=["cpu"] * nd), collective=collective)
+
+
+def ref_codec(nd, collective="ring"):
+    return jax_mc.MeshCodec(mesh=jax_make_mesh(dp=nd), backend="mesh", pallas="off", collective=collective)
+
+
+def host_ref(bufs, weights, n_elems):
+    ref = np.zeros(n_elems, np.float32)
+    for buf, w in zip(bufs, weights):
+        native.weighted_sum_inplace(ref, native.bf16_to_f32(native.f32_to_bf16(buf)), float(w))
+    return ref
+
+
+def feed(folder, bufs, weights, tile, n_elems):
+    for buf, w in zip(bufs, weights):
+        bits = native.f32_to_bf16(buf)
+        for e0 in range(0, n_elems, tile):
+            if folder.add(e0 // tile, float(w), bits[e0 : e0 + tile].tobytes()):
+                folder.flush()
+
+
+@pytest.mark.parametrize("nd", [2, 8])
+@pytest.mark.parametrize("tile,n_tiles,n_elems", CONFIGS)
+def test_ring_matches_reference_folds(nd, tile, n_tiles, n_elems):
+    rng = np.random.default_rng(18)
+    bufs = rng.standard_normal((5, n_elems)).astype(np.float32)
+    port = port_codec(nd).mean_folder(n_elems, tile, n_tiles, "bf16")
+    assert port.kind == "ring"
+    port.flush_bytes = 3 * tile * 2  # several flushes: later ones add into a live accumulator
+    ring = ref_codec(nd).mean_folder(n_elems, tile, n_tiles, "bf16")
+    assert ring.kind == "ring" and ring._lower_cfg == "xla"
+    staged = ref_codec(nd, "off").mean_folder(n_elems, tile, n_tiles, "bf16")
+    assert staged.kind == "staged"
+    for folder in (port, ring, staged):
+        feed(folder, bufs, WEIGHTS, tile, n_elems)
+    got = port.result()
+    assert port.ring_flushes == port.flushes >= 3 and port.codec.stats()["ring_results"] == 1
+    np.testing.assert_allclose(got, ring.result(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, staged.result(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, host_ref(bufs, WEIGHTS, n_elems), rtol=RTOL, atol=ATOL)
+
+
+def test_dense_feeds_and_one_big_batch():
+    """A flush whose tiles repeat within and across ranks (one batch of
+    every chunk), then a dense feed, against the reference's staged folder
+    and the host fold."""
+    rng = np.random.default_rng(3)
+    tile, n_tiles, n_elems = 2048, 4, 8000
+    bufs = rng.standard_normal((5, n_elems)).astype(np.float32)
+    dense = rng.standard_normal(n_elems).astype(np.float32)
+    port = port_codec(2).mean_folder(n_elems, tile, n_tiles, "bf16")
+    staged = ref_codec(2, "off").mean_folder(n_elems, tile, n_tiles, "bf16")
+    for folder in (port, staged):
+        folder.flush_bytes = 1 << 30
+        feed(folder, bufs, WEIGHTS, tile, n_elems)
+        folder.flush()
+        folder.add_dense(dense, 1.5)
+    ref = host_ref(bufs, WEIGHTS, n_elems)
+    native.weighted_sum_inplace(ref, dense, 1.5)
+    got = port.result()
+    assert port.ring_flushes == 1
+    np.testing.assert_allclose(got, staged.result(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+
+
+class TestFolderSelection:
+    """Ported from the reference's ``TestFolderSelection``, plus the port's
+    ``auto`` rule: ring only with two or more CUDA ranks."""
+
+    def test_one_device_falls_back_to_staged(self):
+        c = mc.MeshCodec(device="cpu", backend="device", collective="ring")
+        assert c.mean_folder(8192, 2048, 4, "bf16").kind == "staged"
+        assert not mcol.ring_available(c)
+
+    def test_two_devices_select_ring(self):
+        c = port_codec(2)
+        assert c.mean_folder(8192, 2048, 4, "bf16").kind == "ring"
+        assert c.stats()["collective"] == "ring" and c.stats()["devices"] == 2 and mcol.ring_available(c)
+        assert ref_codec(2).mean_folder(8192, 2048, 4, "bf16").kind == "ring"
+
+    def test_f32_wire_stays_staged(self):
+        assert port_codec(2).mean_folder(8192, 2048, 4, "f32").kind == "staged"
+
+    def test_collective_off_and_cpu_auto_stay_staged(self):
+        assert port_codec(2, "off").mean_folder(8192, 2048, 4, "bf16").kind == "staged"
+        auto = port_codec(2, "auto")
+        assert auto.collective == "off" and auto.mean_folder(8192, 2048, 4, "bf16").kind == "staged"
+
+    def test_indivisible_tile_has_no_folder(self):
+        assert port_codec(8).mean_folder(8188, 2047, 4, "bf16") is None
+        with pytest.raises(ValueError, match="split"):
+            mcol.RingMeanFolder(port_codec(8), 8188, 2047, 4, "bf16")
+        with pytest.raises(ValueError, match="bf16"):
+            mcol.RingMeanFolder(port_codec(2), 8192, 2048, 4, "f32")
+        with pytest.raises(ValueError, match="collective"):
+            port_codec(2, "xla")
+
+
+def test_nan_propagates_like_the_host_fold():
+    rng = np.random.default_rng(18)
+    tile, n_tiles, n_elems = 1024, 4, 4096
+    bufs = rng.standard_normal((3, n_elems)).astype(np.float32)
+    bufs[1, 100:200] = np.nan
+    ws = [1.0, 1.0, 0.5]
+    want = host_ref(bufs, ws, n_elems)
+    for folder in (port_codec(2).mean_folder(n_elems, tile, n_tiles, "bf16"),
+                   ref_codec(2).mean_folder(n_elems, tile, n_tiles, "bf16")):
+        feed(folder, bufs, ws, tile, n_elems)
+        got = folder.result()
+        assert np.array_equal(np.isnan(got), np.isnan(want))
+        fin = ~np.isnan(want)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("nd", [2, 8])
+def test_short_tail_chunk_pads_with_zeros(nd):
+    rng = np.random.default_rng(4)
+    tile, n_tiles, n_elems = 1024, 2, 1030  # the tail chunk holds 6 elements
+    bufs = rng.standard_normal((2, n_elems)).astype(np.float32)
+    port = port_codec(nd).mean_folder(n_elems, tile, n_tiles, "bf16")
+    ring = ref_codec(nd).mean_folder(n_elems, tile, n_tiles, "bf16")
+    for folder in (port, ring):
+        feed(folder, bufs, [1.0, 3.0], tile, n_elems)
+    got = port.result()
+    np.testing.assert_allclose(got, ring.result(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, host_ref(bufs, [1.0, 3.0], n_elems), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("nd", [2, 8])
+def test_allgather_plain_matches_reference_gather(nd):
+    """K7's plain version against the reference ring folder's own gather of
+    the same element-split accumulator (``all_gather`` over the codec axis):
+    bit-equal on every rank."""
+    from jax.sharding import PartitionSpec as P
+
+    rng = np.random.default_rng(5)
+    tile, n_tiles = 1024, 3
+    acc = rng.standard_normal((n_tiles, tile)).astype(np.float32)
+    acc[0, :4] = [np.nan, np.inf, -0.0, 1e-40]
+    ref = ref_codec(nd).mean_folder(n_tiles * tile, tile, n_tiles, "bf16")
+    sharded = jax.device_put(acc, ref.codec._sharding(P(None, "codec")))
+    want = np.asarray(ref._build_gather()(sharded))
+    shard = tile // nd
+    accs = [torch.from_numpy(acc[:, r * shard : (r + 1) * shard].copy()) for r in range(nd)]
+    outs = mcol.ring_allgather(accs)  # CPU tensors: the plain version
+    assert len(outs) == nd
+    for out in outs:
+        assert np.array_equal(out.numpy().view(np.int32), want.view(np.int32))
+    assert np.array_equal(np.asarray(sharded).view(np.int32), acc.view(np.int32))
+
+
+def test_wrappers_take_the_plain_version_only_on_the_cpu():
+    before = dict(mcol.LAUNCHES)
+    accs = [torch.zeros(2, 8), torch.zeros(2, 8)]
+    bits = [torch.zeros(1, 16, dtype=torch.int16), torch.zeros(0, 16, dtype=torch.int16)]
+    mcol.ring_fold(accs, bits, [[1], []], [[1.0], []])
+    mcol.ring_allgather(accs)
+    assert mcol.LAUNCHES == before  # plain versions: nothing launched
+    meta = [torch.zeros(2, 8, device="meta")] * 2
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        mcol.ring_allgather(meta)
+    with pytest.raises(ValueError, match="2 ranks"):
+        mcol.ring_allgather(accs[:1])
+    with pytest.raises(ValueError, match="tile index"):
+        mcol.ring_fold(accs, bits, [[2], []], [[1.0], []])
+    # The flush's slot layout: distinct tiles, each rank's chunks by slot.
+    uniq, metas = mcol.ring_slots([[5, 2, 5], [2]], [[1.0, 2.0, 3.0], [4.0]], 8)
+    assert uniq == [2, 5]
+    np.testing.assert_array_equal(metas[0][:3 + 3 + 2], [0, 1, 3, 1, 0, 2, 2, 5])
+    np.testing.assert_array_equal(metas[0][8:].view(np.float32), [1.0, 2.0, 3.0])
+
+
+def test_streaming_round_with_ring_matches_host():
+    """The copied StreamingAggregator with the ring folder underneath, against
+    the host codec (ported from the reference's ``TestAggregatorParity``)."""
+    rng = np.random.default_rng(6)
+    n_peers, n_elems, chunk = 4, 24000, 1 << 14
+    bufs = rng.standard_normal((n_peers, n_elems)).astype(np.float32)
+    ws = rng.uniform(0.5, 2.0, n_peers)
+
+    async def one(codec):
+        peers = [f"p{i}" for i in range(n_peers)]
+        agg = StreamingAggregator(n_elems, peers, "mean", "bf16", chunk, kw_fn=lambda n: {}, pool=TilePool(),
+                                  codec=codec)
+        wires = [native.f32_to_bf16(bufs[p]).tobytes() for p in range(n_peers)]
+        sinks = [agg.make_sink(peers[p], float(ws[p]), n_elems * 2) for p in range(n_peers)]
+        for off in range(0, n_elems * 2, chunk):
+            for p in range(n_peers):
+                sinks[p](off, n_elems * 2, wires[p][off : off + chunk])
+            await asyncio.sleep(0)
+        for s in sinks:
+            s.close(True)
+        return await agg.finalize(peers), agg.gauges()
+
+    ring_out, ring_g = asyncio.run(asyncio.wait_for(one(port_codec(2)), 60))
+    host_out, host_g = asyncio.run(asyncio.wait_for(one(mc.MeshCodec(device="cpu", backend="host")), 60))
+    np.testing.assert_allclose(ring_out, host_out, rtol=2e-5, atol=1e-5)
+    assert ring_g["folder_kind"] == "ring" and ring_g["ring_flushes"] >= 1
+    assert host_g["folder_kind"] in ("", "staged")
+
+
+def test_failure_fails_the_round_and_keeps_local_state():
+    """An injected failure on a ring codec raises out of the flush and the
+    result (no host replay); in a sync round it fails the round on both
+    peers with their inputs unchanged, and the next round commits through
+    the ring folder. Replaces the reference's degrade tests."""
+    codec = port_codec(2)
+    folder = codec.mean_folder(4096, 1024, 4, "bf16")
+    bits = native.f32_to_bf16(np.ones(4096, np.float32))
+    folder.add(0, 1.0, bits[:1024].tobytes())
+    codec.inject_failure()
+    with pytest.raises(mc.MeshCodecError, match="injected"):
+        folder.flush()
+    folder.add(1, 1.0, bits[:1024].tobytes())
+    codec.inject_failure()
+    with pytest.raises(mc.MeshCodecError, match="injected"):
+        folder.result()
+    assert codec.stats()["backend"] == "device" and codec.stats()["ops_host"] == 0
+
+    kw = {"join_timeout": 6.0, "gather_timeout": 8.0, "min_group": 2, "wire": "bf16"}
+
+    async def node(peer_id, boot=None):
+        t = Transport()
+        dht = DHTNode(t)
+        await dht.start(bootstrap=[boot] if boot else None)
+        mem = SwarmMembership(dht, peer_id, ttl=10.0)
+        await mem.join()
+        return t, mem, SyncAverager(t, dht, mem, mesh_codec=port_codec(2), **kw)
+
+    def tree(v):
+        return {"w": np.full((4, 3), v, np.float32)}
+
+    async def main():
+        a = await node("vol0")
+        b = await node("vol1", boot=a[0].addr)
+        try:
+            a[2].mesh_codec.inject_failure(10**6)  # every device op of the leader's round
+            trees = tree(0.0), tree(4.0)
+            failed = await asyncio.gather(a[2].average(trees[0], 1, weight=1.0), b[2].average(trees[1], 1, weight=1.0),
+                                          return_exceptions=True)
+            a[2].mesh_codec._fail_injected = 0
+            ok = await asyncio.gather(a[2].average(tree(0.0), 2, weight=1.0), b[2].average(tree(4.0), 2, weight=1.0))
+            return failed, trees, ok, [n[2].stats() for n in (a, b)]
+        finally:
+            for t, mem, _ in (a, b):
+                await asyncio.wait_for(mem.leave(), 5)
+                await asyncio.wait_for(t.close(), 5)
+
+    failed, trees, ok, stats = asyncio.run(asyncio.wait_for(main(), 60))
+    assert isinstance(failed[0], mc.MeshCodecError) and failed[1] is None
+    np.testing.assert_array_equal(trees[0]["w"], 0.0)
+    np.testing.assert_array_equal(trees[1]["w"], 4.0)
+    for r in ok:
+        np.testing.assert_allclose(r["w"], 2.0, rtol=1e-5)
+    assert [st["rounds_ok"] for st in stats] == [1, 1]
+    assert stats[0]["aggregation"]["folder_kind"] == "ring" and stats[0]["mesh_codec"]["ops_host"] == 0
