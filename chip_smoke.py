@@ -7,12 +7,19 @@ Phases, each printing one JSON line:
 
 1. env      torch / CUDA versions, device count, the card's name and power limit;
 2. build    nvcc builds the port's CUDA kernels from csrc/ (seconds, library path);
+            per kernel its ptxas registers and spill bytes and its count of
+            ``HGMMA`` (wgmma) instructions in ``cuobjdump -sass`` of the built
+            library; the Hopper K1/K3 must hold HGMMA and spill nothing;
 3. kernels  each flash-attention kernel (K1 forward, K2 dq, K3 dk/dv) against its
             plain PyTorch version, element by element on each row's own scale
-            (``TOL``), at the flagship shape (B=8, H=12, T=1024, D=64, bf16,
-            causal) and at a ragged shape (T=200), causal and not, in bf16 and
-            f32; with kernel / plain / library times (median of CUDA-event
-            timings) and the card's bound for the same work;
+            (``TOL``): at the flagship shape (B=8, H=12, T=1024, D=64, bf16,
+            causal) on contiguous inputs and on the head-split views of a
+            fused [B, T, 3*H*D] qkv projection (read in place, as the train
+            step passes them), at a ragged shape (T=200) causal and not in
+            bf16 and f32, and at D=128 (``D128``) causal and not; then K1-K3
+            and their SDPA yardsticks timed by device time in turns (kernels,
+            library, library, kernels; ``device_ms``), contiguous and on the
+            qkv view, with plain times and the card's bound for the same work;
 4. trainer  ``Trainer(get_model("gpt2_small"), batch_size=8)`` at full width:
             2 warm-up steps, 20 timed steps with finite losses, launch counts of
             24 K1 / 12 K2 / 12 K3 per step; then one fwd/bwd through the kernels
@@ -74,6 +81,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -87,6 +95,7 @@ import torch
 HERE = Path(__file__).resolve().parent
 FLAGSHIP = (8, 12, 1024, 64)
 RAGGED_T = 200
+D128 = (2, 8, 1024, 128)  # llama-7b's head width
 # Kernel vs plain version, element by element, each output row on its own
 # scale: |kernel - plain| <= atol + rtol * max|plain row|, where a row is one
 # query row of O / dq and one key row of dk / dv. Per row, so a late causal
@@ -203,6 +212,63 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int, trials: int = 3) -> dict:
+    """Device time per call of ``reps`` back-to-back calls of ``fn``: a spin
+    kernel holds the stream while all of them are enqueued, so the events
+    bracket device work only, not host dispatch (Python, autograd, the
+    wrappers' tensor maps). The spin is sized from the measured enqueue time
+    and read back: ``held`` says it outlasted the enqueue. Median of
+    ``trials``, with the host's enqueue time per call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int(max(4.0, 3 * enqueue_ms) * 2e6)  # ~2 GHz: 3x the enqueue, 4 ms at least
+    times, spins, enqueues = [], [], []
+    for _ in range(trials):
+        for _attempt in range(4):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            torch.cuda._sleep(cycles)
+            ev[1].record()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            enq = (time.perf_counter() - t0) * 1e3
+            ev[2].record()
+            torch.cuda.synchronize()
+            spin = ev[0].elapsed_time(ev[1])
+            if spin > enq:
+                break
+            cycles *= 2
+        times.append(ev[1].elapsed_time(ev[2]) / reps)
+        spins.append(spin)
+        enqueues.append(enq)
+    return {"ms": statistics.median(times), "all_ms": times, "reps": reps,
+            "enqueue_us_per_call": statistics.median(enqueues) / reps * 1e3,
+            "spin_ms": min(spins), "held": all(s > e for s, e in zip(spins, enqueues))}
+
+
+def attention_inputs(shape, dtype, layout: str, seed: int = 1234):
+    """(q, k, v, dO) [B, H, T, D] on the card. ``contiguous``: four tensors of
+    their own. ``qkv``: q, k, v are the head-split views of one fused
+    [B, T, 3*H*D] projection and dO the head-split view of a [B, T, H*D]
+    gradient, as the train step hands them to the kernels."""
+    from distributedvolunteercomputing_tpu_torch.ops.attention import split_heads
+
+    b, h, t, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "contiguous":
+        return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda").to(dtype)
+    q, k, v = (split_heads(x, h) for x in qkv.split(h * d, dim=-1))
+    do = split_heads(torch.randn((b, t, h * d), generator=gen, device="cuda").to(dtype), h)
+    return q, k, v, do
+
+
 def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -222,16 +288,33 @@ def row_check(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -
     return {"limit_used": used, "worst_row_rel": worst_rel, "min_row_scale": scale.min().item()}
 
 
-def check_kernels(fa, shape, dtype, causal, peak, timed):
-    """Each kernel against its plain version on the same inputs."""
-    import torch.nn.functional as F
-
+def attention_work(shape, dtype, causal, peak) -> dict:
+    """Per kernel: FLOPs, bytes (each input read once, each output written
+    once) and the card's bound for them, for this shape's (query, key)
+    pairs that the mask keeps."""
     b, h, t, d = shape
-    gen = torch.Generator(device="cuda").manual_seed(1234)
-    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    tensor_bytes = b * h * t * d * torch.finfo(dtype).bits // 8
+    row_bytes = b * h * t * 4
+    mem_rate, bf16_rate, f32_rate = peak
+    op_rate = bf16_rate if dtype == torch.bfloat16 else f32_rate
+    out = {}
+    for name, flops, nbytes in (
+        ("flash_fwd", 4 * d * pairs, 4 * tensor_bytes + row_bytes),
+        ("flash_dq", 6 * d * pairs, 5 * tensor_bytes + 2 * row_bytes),
+        ("flash_dkv", 8 * d * pairs, 6 * tensor_bytes + 2 * row_bytes),
+    ):
+        bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / op_rate * 1e3
+        out[name] = {"bound_ms": max(bytes_ms, ops_ms), "bound_us": max(bytes_ms, ops_ms) * 1e3,
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "flops": flops, "bytes": nbytes}
+    return out
+
+
+def attention_runs(fa, q, k, v, do, causal):
+    """name -> (kernel call, plain call) on the same inputs."""
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
     delta = (do.float() * o_ref.float()).sum(-1)
-    runs = {
+    return {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal), lambda: fa.flash_fwd_plain(q, k, v, causal)),
         "flash_dq": (
             lambda: fa.flash_dq(q, k, v, do, lse_ref, delta, causal),
@@ -242,27 +325,16 @@ def check_kernels(fa, shape, dtype, causal, peak, timed):
             lambda: fa.flash_dkv_plain(q, k, v, do, lse_ref, delta, causal),
         ),
     }
-    # Work this run's data needs: the (query, key) pairs the mask keeps.
-    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
-    tensor_bytes = b * h * t * d * q.element_size()
-    row_bytes = b * h * t * 4
-    work = {  # name -> (FLOPs, bytes: each input read once, each output written once)
-        "flash_fwd": (4 * d * pairs, 4 * tensor_bytes + row_bytes),
-        "flash_dq": (6 * d * pairs, 5 * tensor_bytes + 2 * row_bytes),
-        "flash_dkv": (8 * d * pairs, 6 * tensor_bytes + 2 * row_bytes),
-    }
-    mem_rate, bf16_rate, f32_rate = peak
-    op_rate = bf16_rate if dtype == torch.bfloat16 else f32_rate
-    library_ms = {}
-    if timed:
-        qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-        library_ms["fwd"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
 
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
-            torch.autograd.grad(out, (qs, ks, vs), do)
 
-        library_ms["fwd_bwd"] = time_ms(sdpa_fwd_bwd)
+def check_kernels(fa, shape, dtype, causal, peak, layout: str = "contiguous"):
+    """Each kernel against its plain version on the same inputs."""
+    q, k, v, do = attention_inputs(shape, dtype, layout)
+    in_place = all(fa.kernel_layout(x) is x for x in (q, k, v, do))
+    if not in_place:
+        raise AssertionError(f"{layout} inputs at {shape} would be copied before the kernels")
+    runs = attention_runs(fa, q, k, v, do, causal)
+    work = attention_work(shape, dtype, causal, peak)
     rtol, atol, lse_atol = TOL[dtype]
     results = {}
     for name, (kernel, plain) in runs.items():
@@ -280,30 +352,65 @@ def check_kernels(fa, shape, dtype, causal, peak, timed):
                 checks[out] = row_check(a, w, rtol, atol)
         row = {
             "phase": "kernel_check", "kernel": name, "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
-            "causal": causal, "max_abs_err": max(abs_err(a, w) for a, w in zip(got, want)),
-            "rtol": rtol, "atol": atol, "checks": checks,
+            "causal": causal, "layout": layout, "strides": [list(x.stride()) for x in (q, k, v, do)],
+            "in_place": in_place, "max_abs_err": max(abs_err(a, w) for a, w in zip(got, want)),
+            "rtol": rtol, "atol": atol, "checks": checks, **work[name],
         }
         finite = all(torch.isfinite(a).all() for a in got)
-        if not finite or not all(c["limit_used"] <= 1.0 for c in checks.values()):
-            emit(row)
-            raise AssertionError(f"{name} disagrees with its plain version at {shape} {dtype} causal={causal}")
-        flops, nbytes = work[name]
-        bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / op_rate * 1e3
-        row.update(
-            bound_ms=max(bytes_ms, ops_ms), bound_us=max(bytes_ms, ops_ms) * 1e3,
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            flops=flops, bytes=nbytes,
-        )
-        if timed:
-            row.update(
-                ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
-                library_ms=library_ms["fwd" if name == "flash_fwd" else "fwd_bwd"],
-                library_call="F.scaled_dot_product_attention forward"
-                if name == "flash_fwd" else "F.scaled_dot_product_attention forward+backward (K1+K2+K3 work)",
-            )
         emit(row)
+        if not finite or not all(c["limit_used"] <= 1.0 for c in checks.values()):
+            raise AssertionError(
+                f"{name} disagrees with its plain version at {shape} {dtype} causal={causal} {layout}"
+            )
         results[name] = row
     return results
+
+
+DEVICE_MS_METHOD = ("device time per call: back-to-back calls enqueued while a spin kernel holds the stream, "
+                    "CUDA events around the calls only (chip_smoke.device_ms)")
+
+
+def time_attention(fa, peak, reps: int = 40) -> dict:
+    """K1-K3 and their SDPA yardsticks at the flagship shape by device time
+    (``device_ms``), in turns in this one call: kernels, library, library,
+    kernels; contiguous and on the qkv view. Plain versions once each."""
+    import torch.nn.functional as F
+
+    out = {}
+    for layout in ("contiguous", "qkv"):
+        q, k, v, do = attention_inputs(FLAGSHIP, torch.bfloat16, layout)
+        runs = attention_runs(fa, q, k, v, do, True)
+        qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+        def sdpa_fwd():
+            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            torch.autograd.grad(o, (qs, ks, vs), do)
+
+        library = {"sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd}
+        readings = collections.defaultdict(list)
+        order = list(runs) + list(library) + list(library)[::-1] + list(runs)[::-1]
+        for name in order:
+            fn = runs[name][0] if name in runs else library[name]
+            readings[name].append(device_ms(fn, reps if name in runs else reps // 2))
+        row = {"phase": "kernel_times", "layout": layout, "shape": list(FLAGSHIP), "causal": True,
+               "method": DEVICE_MS_METHOD, "order": order}
+        for name, rs in readings.items():
+            row[name] = {"ms": statistics.mean(r["ms"] for r in rs), "readings_ms": [r["ms"] for r in rs],
+                         "enqueue_us_per_call": [r["enqueue_us_per_call"] for r in rs],
+                         "spin_held": all(r["held"] for r in rs)}
+        if layout == "contiguous":
+            for name, (_, plain) in runs.items():
+                row[name]["plain_ms"] = device_ms(plain, 5, trials=1)["ms"]
+        emit(row)
+        if not all(r["spin_held"] for r in row.values() if isinstance(r, dict)):
+            raise AssertionError(f"the spin did not outlast the enqueue: {row}")
+        out[layout] = row
+        del q, k, v, do, qs, ks, vs, runs
+    torch.cuda.empty_cache()
+    return out
 
 
 def trainer_phase(fa, steps_warm: int = 2, steps_timed: int = 20):
@@ -499,29 +606,6 @@ def time_cold_ms(fn_for, n_sets: int, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def time_device_ms(fn_for, n_sets: int, reps: int = 64, trials: int = 5) -> float:
-    """Device time per call of back-to-back launches: the stream is held by
-    a spin kernel while ``reps`` calls are enqueued, so the events bracket
-    device work only, not the host's launch gaps (a 1.6 us kernel launched
-    from Python is otherwise timed at the host's launch rate). Calls cycle
-    over ``n_sets`` input sets larger than the L2 together. Median of
-    ``trials``."""
-    for i in range(n_sets):
-        fn_for(i)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(trials):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)  # ~10 ms of spinning: enough to enqueue every call
-        start.record()
-        for i in range(reps):
-            fn_for(i % n_sets)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
 def codec_phase(peak) -> dict:
     import numpy as np
 
@@ -581,17 +665,20 @@ def codec_phase(peak) -> dict:
                 "bytes": fold_bytes, "flops": fold_flops,
                 "bound_ms": max(fold_bytes / mem_rate, fold_flops / f32_rate) * 1e3,
             }
-            sets = 16  # 16 x 5.24 MB = 84 MB > L2
+            sets = 16  # 16 x 5.24 MB = 84 MB > L2: each call finds its chunk in device memory
             views = [(acc[i * CHUNK_N : (i + 1) * CHUNK_N], bits_p[i * CHUNK_N : (i + 1) * CHUNK_N])
                      for i in range(sets)]
+            cycle = itertools.cycle(views)
+
+            def chunk_ms(fn):
+                return device_ms(lambda: fn(*next(cycle)), reps=4 * sets, trials=5)["ms"]
+
             cb, cf = 10 * CHUNK_N, 2 * CHUNK_N
             chunk = {
                 "n": CHUNK_N,
-                "ms": time_device_ms(lambda i: mc.bf16_decode_axpy(views[i][0], views[i][1], w), sets),
-                "plain_ms": time_device_ms(lambda i: mc.decode_axpy_plain(views[i][0], views[i][1], w), sets),
-                "library_ms": time_device_ms(
-                    lambda i: torch.add(views[i][0], views[i][1].view(torch.bfloat16), alpha=w), sets
-                ),
+                "ms": chunk_ms(lambda a, bits: mc.bf16_decode_axpy(a, bits, w)),
+                "plain_ms": chunk_ms(lambda a, bits: mc.decode_axpy_plain(a, bits, w)),
+                "library_ms": chunk_ms(lambda a, bits: torch.add(a, bits.view(torch.bfloat16), alpha=w)),
                 # One launch as the folder makes it, host launch gap included.
                 "single_launch_ms": time_cold_ms(lambda i: mc.bf16_decode_axpy(views[i][0], views[i][1], w), sets),
                 "library_call": "torch.add(acc, bits.view(torch.bfloat16), alpha=w)",
@@ -1202,6 +1289,68 @@ def flash_launches() -> dict:
     return dict(fa.LAUNCHES)
 
 
+HOPPER_KERNELS = ("6hopper16flash_fwd_kernel", "6hopper16flash_dkv_kernel")  # mangled-name marks
+
+
+def kernel_build_report(log: str, library: str) -> dict:
+    """Per kernel (mangled name): ptxas registers and spill bytes from the
+    build log, HGMMA instructions in ``cuobjdump -sass`` of the library."""
+    import re
+    import shutil
+
+    from distributedvolunteercomputing_tpu_torch.ops import _build
+
+    kernels = collections.defaultdict(dict)
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current:
+            kernels[current]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            kernels[current]["registers"] = int(m.group(1))
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        cuobjdump = Path(shutil.which("cuobjdump") or "cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", library], capture_output=True, text=True, check=True).stdout
+    current = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            kernels[current].setdefault("hgmma", 0)
+        elif current and "HGMMA" in line:
+            kernels[current]["hgmma"] += 1
+    return dict(kernels)
+
+
+def build_phase() -> dict:
+    from distributedvolunteercomputing_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load_library()
+    log = _build.build_info.get("log", "")
+    report = kernel_build_report(log, _build.build_info["path"])
+    row = {
+        "phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": _build.build_info.get("seconds"),
+        "library": _build.build_info["path"], "command": _build.build_info.get("command"),
+        "kernels": report,
+        "ptxas_warnings": [ln.strip() for ln in log.splitlines() if "warning" in ln.lower()],
+    }
+    emit(row)
+    if not log:
+        raise AssertionError("no ptxas report beside the library: delete build/torch_kernels and rerun")
+    hopper = {n: r for n, r in report.items() if any(mark in n for mark in HOPPER_KERNELS)}
+    bad = {n: r for n, r in hopper.items() if not r.get("hgmma") or r.get("spill_bytes", 1) != 0}
+    if len(hopper) != 2 * len(HOPPER_KERNELS) or bad:
+        raise AssertionError(f"Hopper K1/K3 must hold HGMMA and spill nothing (D 64 and 128): {hopper}")
+    return row
+
+
 def reset_all_launch_counts() -> None:
     from distributedvolunteercomputing_tpu_torch.ops import flash_attention as fa
     from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
@@ -1217,7 +1366,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
-    from distributedvolunteercomputing_tpu_torch.ops import _build
     from distributedvolunteercomputing_tpu_torch.ops import flash_attention as fa
     from distributedvolunteercomputing_tpu_torch.utils.torchenv import resolve_device
 
@@ -1230,19 +1378,16 @@ def main() -> int:
     })
     peak = peaks(name)
 
-    t0 = time.perf_counter()
-    _build.load_library()
-    emit({
-        "phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": _build.build_info.get("seconds"),
-        "library": _build.build_info["path"], "command": _build.build_info.get("command"),
-        "ptxas": [ln.strip() for ln in _build.build_info.get("log", "").splitlines() if "registers" in ln],
-    })
-
-    flagship = check_kernels(fa, FLAGSHIP, torch.bfloat16, True, peak, timed=True)
+    build_phase()
+    flagship = check_kernels(fa, FLAGSHIP, torch.bfloat16, True, peak)
+    check_kernels(fa, FLAGSHIP, torch.bfloat16, True, peak, layout="qkv")
     b, h, _, d = FLAGSHIP
     for dtype in (torch.bfloat16, torch.float32):
         for causal in (False, True):
-            check_kernels(fa, (2, h, RAGGED_T, d), dtype, causal, peak, timed=False)
+            check_kernels(fa, (2, h, RAGGED_T, d), dtype, causal, peak)
+    for causal in (False, True):
+        check_kernels(fa, D128, torch.bfloat16, causal, peak)
+    times = time_attention(fa, peak)
 
     launches = trainer_phase(fa)
     codec = codec_phase(peak)
@@ -1255,12 +1400,16 @@ def main() -> int:
 
     kernels = []
     for kname, (replaces, kid) in KERNELS.items():
-        r = flagship[kname]
+        r, t = flagship[kname], times["contiguous"]
+        lib = "sdpa_fwd" if kname == "flash_fwd" else "sdpa_fwd_bwd"
         kernels.append({
             "name": kname, "id": kid, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "library_call": r["library_call"],
+            "launches": launches[kname], "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
+            "ms_method": DEVICE_MS_METHOD, "ms_qkv_view": times["qkv"][kname]["ms"],
+            "plain_ms": t[kname]["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": t[lib]["ms"], "library_ms_qkv_view": times["qkv"][lib]["ms"],
+            "library_call": "F.scaled_dot_product_attention forward" if lib == "sdpa_fwd"
+            else "F.scaled_dot_product_attention forward+backward (K1+K2+K3 work)",
         })
     for kname, (replaces, kid), r, err in (
         ("bf16_encode", CODEC_KERNELS["bf16_encode"], codec["K4"], codec["encode_max_abs_err"]),

@@ -3,7 +3,8 @@
 The sources under ``csrc/`` are compiled in parallel (one nvcc each) and
 linked into one shared library with a plain C interface, in
 ``build/torch_kernels/<hash of the sources>/`` beside the package, so a
-changed source never loads a stale library. nvcc is found on
+changed source never loads a stale library; the compiler's report (ptxas
+registers and spills per kernel) is kept beside it as ``.log``. nvcc is found on
 ``PATH`` or under ``$CUDA_HOME`` (default ``/usr/local/cuda``). A missing
 nvcc or a failed build raises with the compiler's output; nothing falls back.
 """
@@ -99,13 +100,13 @@ def _compile(out: Path) -> None:
         procs = list(pool.map(_run, cmds))
     link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
     procs.append(_run(link))
+    log = "".join(p.stderr + p.stdout for p in procs)
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     for obj in objs:
         obj.unlink()
     build_info.update(
-        seconds=time.perf_counter() - t0,
-        log="".join(p.stderr + p.stdout for p in procs),
-        command=" && ".join(" ".join(c) for c in cmds + [link]),
+        seconds=time.perf_counter() - t0, log=log, command=" && ".join(" ".join(c) for c in cmds + [link])
     )
 
 
@@ -117,8 +118,10 @@ def load_library() -> ctypes.CDLL:
             path = library_path()
             if not path.exists():
                 _compile(path)
-            else:
+            else:  # built earlier: its compiler report was kept beside it
                 build_info.setdefault("seconds", 0.0)
+                log = path.with_suffix(".log")
+                build_info.setdefault("log", log.read_text() if log.exists() else "")
             lib = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

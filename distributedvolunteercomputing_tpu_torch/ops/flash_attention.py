@@ -11,15 +11,19 @@ K2     ``_bwd_dq_kernel``            ``flash_dq`` / ``flash_dq_plain``
 K3     ``_bwd_dkv_kernel``           ``flash_dkv`` / ``flash_dkv_plain``
 =====  ============================  =====================================
 
-The kernels live in ``csrc/flash_attention.cu``. On an H100 at the flagship
-shape (B 8, H 12, T 1024, D 64, bf16, causal) K1 is bound by its bytes
-(~15 us) and K2/K3 by tensor-core operations (~20/26 us). This first design
-(one block per 64-row tile, wmma products and accumulators in shared memory)
-is correct and simple, not near that bound; the source's header says more
-and PERF.md has the measured times. A wrapper given CPU
-tensors computes the plain version; given CUDA tensors it launches its kernel
-or raises — there is no fallback. ``LAUNCHES`` counts kernel launches, one per
-wrapper call that reached the card.
+The kernels live in ``csrc/flash_attention.cu``. bf16 K1 and K3 are Hopper
+kernels: a producer feeds a 2-stage ring of K/V (K1) or Q/dO (K3) tiles
+through TMA tensor maps that read the caller's strided views in place, and
+consumer warpgroups run ``wgmma`` with their accumulators (O, m, l; dK, dV)
+in registers for the whole loop. K2, and K1/K3 in f32 (the f32 parity
+passes), keep the first design: one block per 64-row tile, wmma or scalar
+products from shared memory. On an H100 at the flagship shape (B 8, H 12,
+T 1024, D 64, bf16, causal) K1 is bound by its bytes (~15 us) and K2/K3 by
+tensor-core operations (~20/26 us); PERF.md section 6 has the measured
+times beside those bounds (``chip_smoke.py``'s kernels phase). A wrapper
+given CPU tensors computes the plain version; given CUDA tensors it launches
+its kernel or raises — there is no fallback. ``LAUNCHES`` counts kernel
+launches, one per wrapper call that reached the card.
 
 Semantics are the reference's: scale 1/sqrt(D), causal masking top-left
 aligned, masked scores set to -1e30 (not -inf), softmax statistics and
@@ -105,14 +109,18 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal: bool) -> Tuple[torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+_TMA_STRIDE_LIMIT = 1 << 40  # bytes: cuTensorMapEncodeTiled refuses larger strides
+
+
 def _aligned(x: torch.Tensor) -> bool:
-    """Rows the kernels can read 16 bytes at a time: contiguous last dim,
-    16-byte aligned base and (batch, head, time) strides."""
+    """Rows the kernels can read 16 bytes at a time, and the TMA tensor maps
+    can describe: contiguous last dim, 16-byte aligned base, (batch, head,
+    time) strides in multiples of 16 bytes and below 2**40 bytes."""
     vec = 16 // x.element_size()
     return (
         x.stride(-1) == 1
         and x.data_ptr() % 16 == 0
-        and all(s % vec == 0 for s in x.stride()[:-1])
+        and all(s % vec == 0 and s * x.element_size() < _TMA_STRIDE_LIMIT for s in x.stride()[:-1])
     )
 
 

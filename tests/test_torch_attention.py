@@ -122,3 +122,32 @@ def test_wrappers_launch_or_raise():
     x = torch.randn(1, 1, 8, 64)
     port_flash.flash_fwd(x, x, x, True)
     assert port_flash.LAUNCHES == before
+
+
+@pytest.mark.parametrize("h, d", [(12, 64), (8, 128)])
+def test_fused_qkv_views_are_read_in_place(h, d):
+    # The train step hands K1-K3 the head-split views of the fused qkv
+    # projection (t-stride 3*H*D elements, k and v bases inside the row) and
+    # dO as the head-split view of a [B, T, H*D] gradient. The kernels' TMA
+    # tensor maps read them in place: _aligned passes them and kernel_layout
+    # hands them back unchanged.
+    t = 32
+    qkv = torch.zeros(2, t, 3 * h * d, dtype=torch.bfloat16)
+    q, k, v = (port_attn.split_heads(x, h) for x in qkv.split(h * d, dim=-1))
+    do = port_attn.split_heads(torch.zeros(2, t, h * d, dtype=torch.bfloat16), h)
+    assert q.stride() == (t * 3 * h * d, d, 3 * h * d, 1)
+    assert k.data_ptr() - q.data_ptr() == h * d * 2
+    for x in (q, k, v, do):
+        assert port_flash._aligned(x)
+        assert port_flash.kernel_layout(x) is x
+    # A t-stride that is not a multiple of 16 bytes cannot be read in place.
+    ragged = torch.zeros(2, t, h * d + 4, dtype=torch.bfloat16)[..., : h * d]
+    assert not port_flash._aligned(port_attn.split_heads(ragged, h))
+    # Nor a base that is not 16-byte aligned.
+    shifted = torch.zeros(2, t, h * d + 8, dtype=torch.bfloat16)[..., 4 : 4 + h * d]
+    assert not port_flash._aligned(port_attn.split_heads(shifted, h))
+    # Nor a stride of 2**40 bytes or more, the tensor maps' limit (on a batch
+    # of one, so the view needs no storage for it).
+    big = torch.zeros(1, h, 4, d, dtype=torch.bfloat16).as_strided((1, h, 4, d), (1 << 39, 4 * d, d, 1))
+    assert not port_flash._aligned(big)
+    assert port_flash._aligned(big.as_strided(big.shape, ((1 << 39) - 8, 4 * d, d, 1)))
