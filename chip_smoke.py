@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
 2. build    nvcc builds the port's CUDA kernels from csrc/ (seconds, library path);
             per kernel its ptxas registers and spill bytes and its count of
             ``HGMMA`` (wgmma) instructions in ``cuobjdump -sass`` of the built
-            library; the Hopper K1/K3 must hold HGMMA and spill nothing;
+            library; the Hopper K1/K2/K3 must hold HGMMA and spill nothing;
 3. kernels  each flash-attention kernel (K1 forward, K2 dq, K3 dk/dv) against its
             plain PyTorch version, element by element on each row's own scale
             (``TOL``): at the flagship shape (B=8, H=12, T=1024, D=64, bf16,
@@ -52,13 +52,18 @@ Phases, each printing one JSON line:
 7. ring_kernels  the ring kernels (K6 reduce-scatter fold, K7 all-gather)
             against their plain versions at nd = 2 and 4 ranks: the first nd
             cards when there are that many, else nd ranks sharing cuda:0
-            (printed with ``cross_card``). Three flushes: the flagship one
+            (printed with ``cross_card``). Four flushes: the flagship one
             (gpt2_small's flat buffer, 1 MiB chunks, 16 chunks with repeated
             tiles, the short tail tile and one zero weight), a ragged one
-            (shards not a multiple of 8: the scalar paths) and special bit
-            patterns. K6 bit-equal on finite lanes with inf / NaN lanes
-            matching, K7 bit-equal, the whole fold within ``RING_TOL`` of the
-            host fold; kernel / plain / library times per flush and per
+            (shards not a multiple of 8: the scalar paths), special bit
+            patterns, and one of 600 small chunks whose metadata splits it
+            into several rings of whole slots. K6 bit-equal on finite lanes
+            with inf / NaN lanes matching, K7 bit-equal, the whole fold
+            within ``RING_TOL`` of the host fold, K6's launches one per card
+            per ring step per ring: one ring for every case but "split",
+            whose ring count is bounded by its metadata words alone
+            (``k6_ring_range``); kernel / plain / library times per
+            flush (the wrapper's, and the kernels' own device time) and per
             result, and the bound;
 8. dp_parity one full-width f32 step of the dp=2 trainer (two ranks, as in
             7) against the one-rank trainer from the same init and batch:
@@ -68,8 +73,9 @@ Phases, each printing one JSON line:
 9. ring_averaging  phase 6 again with both volunteers on a dp=2 mesh and
             ``mesh_collective="ring"``: the leader's streamed rounds fold on
             K6 and gather on K7, no K5 launch, K4 once per rank per encode,
-            K6 = nd² per ring flush and K7 = nd·(nd - 1) per ring result
-            (the codec's gauges), values within ``AVG_TOL``.
+            K6 = nd·(cards in use) per ring flush (one launch per card per
+            ring step: nd on the one card) and K7 = nd·(nd - 1) per ring
+            result (the codec's gauges), values within ``AVG_TOL``.
 
 Then one line listing every kernel, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure raises: the script
@@ -151,6 +157,10 @@ AVG_TOL = {"bf16_u": 2.0**-8, "f32_ulps": 4 * 2.0**-24, "floor": 2.0**-126}
 # (tests/test_mesh_collective.py). Kernel vs plain version is bit-equal.
 RING_NDS = (2, 4)
 RING_TOL = {"rtol": 1e-5, "atol": 1e-6}
+# K6's parameter block (csrc/ring_collective.cu kFoldMaxRanks, kFoldMetaWords):
+# ranks per launch and int32 metadata words per launch.
+K6_MAX_RANKS = 8
+K6_META_WORDS = 896
 RING_SOURCE = "distributedvolunteercomputing_tpu_torch/csrc/ring_collective.cu"
 RING_KERNELS = {  # name -> (TPU kernel it replaces, id)
     "ring_fold": ("distributedvolunteercomputing_tpu/ops/mesh_collective.py:87", "K6"),
@@ -725,7 +735,7 @@ AVG_OVERLAP = False
 
 def expected_codec_launches(
     groups_formed: int, committed_rounds: int, streamed_contribs: int,
-    nd: int = 1, ring: bool = False, ring_flushes: int = 0, ring_results: int = 0,
+    nd: int = 1, ring: bool = False, ring_flushes: int = 0, ring_results: int = 0, cards: int = 1,
 ) -> dict:
     """Launches the round protocol implies for two volunteers sharing the
     card (``swarm/averager.py``, ``swarm/agg_stream.py``, health probe on),
@@ -747,16 +757,17 @@ def expected_codec_launches(
     leader's staged folder (``MeshMeanFolder._flush_dev``), none under the
     ring. Round 1 parks the member's push dense (the leader arms after its
     first pack); dense feeds are plain ``add_``.
-    K6 / K7 (ring, ``nd`` ranks): nd steps of nd launches per ring flush,
-    nd - 1 hops of nd launches per ring result, counted by the codec's
-    ``ring_flushes`` and ``ring_results`` gauges."""
+    K6 / K7 (ring, ``nd`` ranks on ``cards`` cards): nd steps of one launch
+    per card per ring flush (a flagship flush of 1 MiB chunks always fits
+    one launch's metadata), nd - 1 hops of nd launches per ring result,
+    counted by the codec's ``ring_flushes`` and ``ring_results`` gauges."""
     chunks = -(-FLAT_N * 2 // (1 << 20))
     out = {
         "bf16_encode": nd * (2 * groups_formed + committed_rounds),
         "bf16_decode_axpy": 0 if ring else chunks * streamed_contribs,
     }
     if ring:
-        out.update(ring_fold=nd * nd * ring_flushes, ring_allgather=nd * (nd - 1) * ring_results)
+        out.update(ring_fold=nd * cards * ring_flushes, ring_allgather=nd * (nd - 1) * ring_results)
     return out
 
 
@@ -867,9 +878,10 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
     fetches = sum(sp.get("fetch", {}).get("count", 0) for sp in spans)
     nd = codec_stats["devices"]
     ring = collective == "ring"
+    cards = k6_launch_groups(mesh.flat()) if mesh is not None else 1
     expect = expected_codec_launches(
         sum(groups_formed), rounds[0], streamed, nd=nd, ring=ring,
-        ring_flushes=codec_stats["ring_flushes"], ring_results=codec_stats["ring_results"],
+        ring_flushes=codec_stats["ring_flushes"], ring_results=codec_stats["ring_results"], cards=cards,
     )
     folder = "ring" if ring else "staged"
     row = {
@@ -1040,6 +1052,29 @@ def host_fold(case, accs_init) -> "np.ndarray":
     return full[: case["n_elems"]]
 
 
+def k6_launch_groups(devices) -> int:
+    """K6 launches per ring step: one per card, at most ``K6_MAX_RANKS``
+    ranks each."""
+    return sum(-(-n // K6_MAX_RANKS) for n in collections.Counter(str(d) for d in devices).values())
+
+
+def k6_ring_range(rank_tiles, nd: int) -> tuple:
+    """The fewest and most rings K6 may fold a flush in, from its metadata
+    word count alone: W = U·(1 + nd) + nd + 2K for U distinct tiles and K
+    chunks (row and slot_ptr per slot, the closing slot_ptr, chunk and weight
+    per chunk). W within one launch's ``K6_META_WORDS`` is one ring. Beyond
+    it, every ring but the last stopped short of the next slot, which adds at
+    most 1 + nd + 2·c words (c its most chunks of one tile), and every ring
+    adds its own closing slot_ptr (nd words)."""
+    counts = collections.Counter(t for ts in rank_tiles for t in ts)
+    k = sum(counts.values())
+    words = len(counts) * (1 + nd) + nd + 2 * k
+    if words <= K6_META_WORDS:
+        return 1, 1
+    room = K6_META_WORDS - 1 - 2 * nd - 2 * max(counts.values())
+    return -(-words // K6_META_WORDS), -(-words // room)
+
+
 def ring_kernels_phase(peak, ranks=ring_ranks) -> dict:
     """K6 and K7 against ``ring_fold_plain`` / ``ring_allgather_plain`` at
     nd = 2 and 4 on the ranks of ``ring_ranks``: the flagship geometry (one
@@ -1067,6 +1102,7 @@ def ring_kernels_phase(peak, ranks=ring_ranks) -> dict:
         emit({"phase": "ring_ranks", "nd": nd, "devices": [str(d) for d in devices], "cross_card": cross,
               "device_count": torch.cuda.device_count()})
         codec = mc.MeshCodec(backend="device", mesh=_mesh(devices), collective="ring")
+        launch_groups = k6_launch_groups(devices)  # K6 launches per ring step
         ft = rng.choice(flag_tiles - 1, 12).tolist() + [flag_tiles - 1]
         ft = ft + ft[:3]  # repeated tiles within and across ranks; 16 chunks
         fw = rng.uniform(0.25, 2.0, len(ft)).astype(np.float32).tolist()
@@ -1077,13 +1113,20 @@ def ring_kernels_phase(peak, ranks=ring_ranks) -> dict:
             ring_case("ragged", devices, 2 * 4100 + 77, 4100, rt, rng.uniform(0.5, 2.0, 7).tolist(), gen),
             ring_case("special", devices, 3 * 65536, 65536, [0, 1, 2, 1, 0, 2], [1.0, 0.0, 2.5, 0.5, 1.5, 3.0], gen,
                       special=True),
+            # 600 chunks over 300 tiles: more metadata than one launch holds.
+            ring_case("split", devices, 300 * 1024 - 5, 1024, rng.permutation(np.repeat(np.arange(300), 2)).tolist(),
+                      rng.uniform(0.5, 2.0, 600).tolist(), gen),
         ]
         for case in cases:
             if case["tile"] % nd:
                 continue
             accs_k, accs_p = ring_accs(case), ring_accs(case)
             init = [a.clone() for a in accs_k]
-            mcol.ring_fold(accs_k, case["bits"], case["rank_tiles"], case["rank_weights"], streams=codec.streams)
+            rings = k6_ring_range(case["rank_tiles"], nd)
+            before = mcol.LAUNCHES["ring_fold"]
+            mcol.ring_fold(accs_k, case["bits"], case["rank_tiles"], case["rank_weights"], mcol.RingPartials(),
+                           streams=codec.streams)
+            fold_launches = mcol.LAUNCHES["ring_fold"] - before
             mcol.ring_fold_plain(accs_p, case["bits"], case["rank_tiles"], case["rank_weights"])
             outs_k = mcol.ring_allgather(accs_k, streams=codec.streams)
             outs_p = mcol.ring_allgather_plain(accs_k)
@@ -1095,9 +1138,13 @@ def ring_kernels_phase(peak, ranks=ring_ranks) -> dict:
                 "n_elems": case["n_elems"], "tile": case["tile"], "n_tiles": case["n_tiles"],
                 "chunks": len(case["tiles"]), "distinct_tiles": len(set(case["tiles"])),
                 "chunks_per_rank": [len(t) for t in case["rank_tiles"]],
-                "ring_fold_vs_plain": fold, "ring_allgather_vs_plain": gather,
+                "ring_fold_vs_plain": fold, "ring_allgather_vs_plain": gather, "fold_rings_expected": list(rings),
+                "fold_launches": fold_launches,
+                "fold_launches_expected": [nd * launch_groups * r for r in rings],
             }
             ok = all(f["finite_lanes_differing"] == 0 and f["nonfinite_match"] for f in fold + gather)
+            lo, hi = row["fold_launches_expected"]
+            ok = ok and fold_launches % (nd * launch_groups) == 0 and lo <= fold_launches <= hi
             if not case["special"]:
                 got = outs_k[0].view(-1)[: case["n_elems"]].cpu().numpy()
                 want = host_fold(case, init)
@@ -1141,9 +1188,10 @@ def kernel_device_ms(fn, kernel: str, iters: int = 10) -> float:
 
 
 def time_ring(case, codec, mem_rate, f32_rate) -> dict:
-    """ms per flush (K6: the wrapper's whole ring, host metadata included)
-    and per result (K7) from CUDA events, the kernels' own device time from
-    the profiler, plain versions, library yardsticks and bounds."""
+    """ms per flush (K6: the wrapper's whole ring, host metadata included,
+    partial slots kept across flushes as the folder keeps them) and per
+    result (K7) from CUDA events, the kernels' own device time from the
+    profiler, plain versions, library yardsticks and bounds."""
     from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
     from distributedvolunteercomputing_tpu_torch.ops import mesh_collective as mcol
 
@@ -1151,6 +1199,11 @@ def time_ring(case, codec, mem_rate, f32_rate) -> dict:
     k, u = len(case["tiles"]), len(set(case["tiles"]))
     accs = ring_accs(case)
     args = (case["bits"], case["rank_tiles"], case["rank_weights"])
+    partials = mcol.RingPartials()  # kept across flushes, as the ring folder keeps them
+
+    def fold():
+        mcol.ring_fold(accs, *args, partials, streams=codec.streams)
+
     # Yardsticks the port never calls: the fold without the ring (decoded,
     # weighted batch -> one index_add_), at full width and into one shard.
     dec = torch.tensor(case["weights"], device="cuda")[:, None] * mc.widen_bf16(case["bits_full"])
@@ -1165,14 +1218,14 @@ def time_ring(case, codec, mem_rate, f32_rate) -> dict:
     gather_bytes = (1 + nd) * n_tiles * tile * 4
     out = {
         "K6": {
-            "ms": time_ms(lambda: mcol.ring_fold(accs, *args, streams=codec.streams)),
-            "device_ms": kernel_device_ms(lambda: mcol.ring_fold(accs, *args, streams=codec.streams),
-                                          "ring_fold_kernel"),
+            "ms": time_ms(fold),
+            "device_ms": kernel_device_ms(fold, "ring_fold_kernel"),
             "plain_ms": time_ms(lambda: mcol.ring_fold_plain(accs, *args), iters=5),
             "library_ms": time_ms(lambda: full.index_add_(0, tiles_t, dec)),
             "library_call": "acc.index_add_(0, tiles, w * widen(bits)) at full width, decode not timed",
             "library_shard_ms": time_ms(lambda: one_shard.index_add_(0, tiles_t, dec_shard)),
-            "bytes": fold_bytes, "flops": fold_flops, "launches_per_flush": nd * nd,
+            "bytes": fold_bytes, "flops": fold_flops,
+            "launches_per_flush": nd * k6_launch_groups(case["devices"]),
             "bound_ms": max(fold_bytes / mem_rate, fold_flops / f32_rate) * 1e3,
             "bound_by": "bytes" if fold_bytes / mem_rate >= fold_flops / f32_rate else "operations",
         },
@@ -1289,7 +1342,9 @@ def flash_launches() -> dict:
     return dict(fa.LAUNCHES)
 
 
-HOPPER_KERNELS = ("6hopper16flash_fwd_kernel", "6hopper16flash_dkv_kernel")  # mangled-name marks
+HOPPER_KERNELS = (  # mangled-name marks of the bf16 K1, K2 and K3
+    "6hopper16flash_fwd_kernel", "6hopper15flash_dq_kernel", "6hopper16flash_dkv_kernel",
+)
 
 
 def kernel_build_report(log: str, library: str) -> dict:
@@ -1347,7 +1402,7 @@ def build_phase() -> dict:
     hopper = {n: r for n, r in report.items() if any(mark in n for mark in HOPPER_KERNELS)}
     bad = {n: r for n, r in hopper.items() if not r.get("hgmma") or r.get("spill_bytes", 1) != 0}
     if len(hopper) != 2 * len(HOPPER_KERNELS) or bad:
-        raise AssertionError(f"Hopper K1/K3 must hold HGMMA and spill nothing (D 64 and 128): {hopper}")
+        raise AssertionError(f"Hopper K1/K2/K3 must hold HGMMA and spill nothing (D 64 and 128): {hopper}")
     return row
 
 

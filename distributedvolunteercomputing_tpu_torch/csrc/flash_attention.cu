@@ -13,22 +13,23 @@
 // atomics and no second pass. Causal masking is top-left aligned.
 //
 // Two designs:
-//  - bf16 K1 and K3 (namespace hopper, below): warp-specialised blocks. A
-//    producer issues TMA loads of 4-D tensor maps through 2-stage mbarrier
-//    rings; consumer warpgroups run wgmma with operands in 128-byte-swizzled
-//    shared memory and accumulators in registers. K1: 64 query rows per
-//    block, two blocks per SM; O, m and l stay in registers for the whole
-//    key loop, softmax runs on the S registers, P feeds P.V as the register
-//    A operand, and S_j is issued with P_{j-1}.V_{j-1} so the softmax
-//    overlaps a product. K3: 128 keys per block, K and V resident, Q/dO
-//    tiles streamed; S^T = K.Q^T and dP^T = V.dO^T land in registers, and
-//    P^T, dS^T feed dV += P^T.dO and dK += dS^T.Q as register A operands.
-//    TMA zero-fills rows past T.
-//  - K2 in both dtypes, and K1/K3 in f32 (the f32 parity passes): one block
-//    per 64-row tile, four warps of 16 rows, staged tiles and accumulators in
-//    shared memory; bf16 products through nvcuda::wmma (m16n16k16, which is
-//    mma.sync), f32 products through scalar FMA. Rows past T are zero filled
-//    on load and masked.
+//  - bf16 K1, K2 and K3 (namespace hopper, below): warp-specialised blocks.
+//    A producer issues TMA loads of 4-D tensor maps through mbarrier rings;
+//    consumer warpgroups run wgmma with operands in 128-byte-swizzled shared
+//    memory and accumulators in registers. K1: 64 query rows per block, two
+//    blocks per SM; O, m and l stay in registers for the whole key loop,
+//    softmax runs on the S registers, P feeds P.V as the register A operand,
+//    and S_j is issued with P_{j-1}.V_{j-1} so the softmax overlaps a
+//    product. K2: K1's block shape, Q and dO resident, K/V streamed; S and
+//    dP land in registers, dS feeds dQ += dS.K as the register A operand,
+//    and the co-resident block's products fill each block's waits. K3: 128
+//    keys per block, K and V resident, Q/dO tiles streamed; S^T = K.Q^T and
+//    dP^T = V.dO^T land in registers, and P^T, dS^T feed dV += P^T.dO and
+//    dK += dS^T.Q as register A operands. TMA zero-fills rows past T.
+//  - K1, K2 and K3 in f32 (the f32 parity passes): one block per 64-row
+//    tile, four warps of 16 rows, staged tiles and accumulators in shared
+//    memory, products through scalar FMA. Rows past T are zero filled on
+//    load and masked.
 //
 // Inputs are read through (batch, head, time) strides with a contiguous last
 // dimension, so the head-split view of the fused qkv projection is read in
@@ -38,7 +39,7 @@
 // D=64, bf16, causal) K1 needs 12.9 GFLOP against 51 MB of traffic, so its
 // bytes bound it (15 us at 3.35 TB/s); K2 needs 19.3 GFLOP and K3 25.8 GFLOP
 // against 63-76 MB, so the tensor cores bound them (20 / 26 us at 989
-// TFLOP/s). The K2 / f32 design is far from its bound. Measured times beside
+// TFLOP/s). The f32 design is far from its bound. Measured times beside
 // the bounds: PERF.md section 6, from chip_smoke.py's kernels phase.
 //
 // Plain C interface (bound with ctypes); each entry point launches on the
@@ -47,7 +48,6 @@
 #include <cuda.h>  // CUtensorMap; the encoder comes through the runtime's driver entry point
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -56,7 +56,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr int BQ = 64;      // query rows per tile
 constexpr int BK = 64;      // key rows per tile
@@ -67,13 +66,6 @@ constexpr float NEG_INF = -1e30f;  // the reference's mask value, not -inf
 struct Strides {
   long long b, h, t;  // in elements; the last dimension is contiguous
 };
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -87,20 +79,17 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Row pitches (in elements) of the shared-memory tiles. bf16 rows are padded
-// by 16 bytes against bank conflicts and to keep wmma's 32-byte alignment.
-// The f32 instantiation is unpadded and lets P/dS share the f32 score
-// buffers, which is what fits its D=128 dk/dv kernel into 227 KB.
+// Row pitches (in elements) of the shared-memory tiles of the f32 kernels.
+// P / dS share the score buffers, which is what fits the D=128 dk/dv kernel
+// into 227 KB.
 template <typename T, int D>
 struct Cfg {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int LDT = D + (kF32 ? 0 : 8);   // staged Q/K/V/dO tiles (T)
-  static constexpr int LDS = BK + 4;               // score tiles (f32)
-  static constexpr int LDP = kF32 ? LDS : BK + 8;  // P / dS tiles (T)
-  static constexpr int LDA = D + (kF32 ? 0 : 4);   // output accumulators (f32)
+  static_assert(std::is_same<T, float>::value, "bf16 goes to the kernels of namespace hopper");
+  static constexpr int LDT = D;       // staged Q/K/V/dO tiles
+  static constexpr int LDS = BK + 4;  // score tiles, and P / dS over them
+  static constexpr int LDA = D;       // output accumulators
   static constexpr size_t TILE = sizeof(T) * BQ * LDT;
   static constexpr size_t SCORE = 4 * BQ * LDS;
-  static constexpr size_t PROB = kF32 ? 0 : sizeof(T) * BQ * LDP;
   static constexpr size_t ACC = 4 * BQ * LDA;
 };
 
@@ -110,55 +99,6 @@ struct Cfg {
 
 template <typename T>
 struct WarpMma;
-
-template <>
-struct WarpMma<bf16> {
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-  using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-  // C[16][N] = A[16][K] . B[N][K]^T
-  template <int N, int K>
-  static __device__ __forceinline__ void abt(const bf16* A, int lda, const bf16* B, int ldb,
-                                             float* C, int ldc) {
-#pragma unroll
-    for (int n = 0; n < N / 16; ++n) {
-      FragC c;
-      wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-      for (int k = 0; k < K / 16; ++k) {
-        FragA a;
-        FragBT b;
-        wmma::load_matrix_sync(a, A + k * 16, lda);
-        wmma::load_matrix_sync(b, B + n * 16 * ldb + k * 16, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + n * 16, c, ldc, wmma::mem_row_major);
-    }
-  }
-
-  // C[16][N] += A[16][K] . B[K][N]
-  template <int N, int K>
-  static __device__ __forceinline__ void ab_acc(const bf16* A, int lda, const bf16* B, int ldb,
-                                                float* C, int ldc) {
-#pragma unroll
-    for (int n = 0; n < N / 16; ++n) {
-      FragC c;
-      wmma::load_matrix_sync(c, C + n * 16, ldc, wmma::mem_row_major);
-#pragma unroll
-      for (int k = 0; k < K / 16; ++k) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, A + k * 16, lda);
-        wmma::load_matrix_sync(b, B + k * 16 * ldb + n * 16, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + n * 16, c, ldc, wmma::mem_row_major);
-    }
-  }
-
-};
 
 template <>
 struct WarpMma<float> {
@@ -231,7 +171,7 @@ __device__ __forceinline__ void store_tile(T* g, long long st, const float* sm, 
     if (row0 + r >= nrows) continue;
     alignas(16) T pack[VEC];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) pack[e] = from_f<T>(sm[r * LD + c + e] * mul);
+    for (int e = 0; e < VEC; ++e) pack[e] = sm[r * LD + c + e] * mul;
     *reinterpret_cast<uint4*>(g + (row0 + r) * st + c) = *reinterpret_cast<const uint4*>(pack);
   }
 }
@@ -244,7 +184,7 @@ template <typename T, int D>
 struct FwdSmem {
   using C = Cfg<T, D>;
   static constexpr size_t q = 0, k = q + C::TILE, v = k + C::TILE, s = v + C::TILE;
-  static constexpr size_t p = s + C::SCORE, acc = p + C::PROB, m = acc + C::ACC;
+  static constexpr size_t acc = s + C::SCORE, m = acc + C::ACC;
   static constexpr size_t l = m + 4 * BQ, bytes = l + 4 * BQ;
 };
 
@@ -253,7 +193,6 @@ __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk,
                      Strides sv, Strides so, int H, int Tq, int Tk, float scale, int causal) {
-  static_assert(std::is_same<T, float>::value, "bf16 K1 is hopper::flash_fwd_kernel");
   using C = Cfg<T, D>;
   using L = FwdSmem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -261,7 +200,7 @@ __global__ void __launch_bounds__(NTHREADS)
   T* sK = reinterpret_cast<T*>(smem + L::k);
   T* sV = reinterpret_cast<T*>(smem + L::v);
   float* sS = reinterpret_cast<float*>(smem + L::s);
-  T* sP = reinterpret_cast<T*>(smem + (C::kF32 ? L::s : L::p));
+  T* sP = reinterpret_cast<T*>(smem + L::s);
   float* sAcc = reinterpret_cast<float*>(smem + L::acc);
   float* sM = reinterpret_cast<float*>(smem + L::m);
   float* sL = reinterpret_cast<float*>(smem + L::l);
@@ -313,7 +252,7 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int half = 0; half < 2; ++half) {
         const float p = expf(s[half] - m_new);
         psum += p;
-        sP[r * C::LDP + lane + 32 * half] = from_f<T>(p);
+        sP[r * C::LDS + lane + 32 * half] = p;
       }
       psum = warp_sum(psum);
       for (int c = lane; c < D; c += 32) sAcc[r * C::LDA + c] *= corr;
@@ -324,7 +263,7 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     }
     __syncwarp();
-    WarpMma<T>::template ab_acc<D, BK>(sP + r0 * C::LDP, C::LDP, sV, C::LDT, sAcc + r0 * C::LDA,
+    WarpMma<T>::template ab_acc<D, BK>(sP + r0 * C::LDS, C::LDS, sV, C::LDT, sAcc + r0 * C::LDA,
                                         C::LDA);
     __syncthreads();
   }
@@ -341,15 +280,15 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---------------------------------------------------------------------------
-// K2: dq. Grid (q-tiles, H, B); block = one 64-row query tile.
+// K2 in f32: dq. Grid (q-tiles, H, B); block = one 64-row query tile.
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
 struct DqSmem {
   using C = Cfg<T, D>;
   static constexpr size_t q = 0, dO = q + C::TILE, k = dO + C::TILE, v = k + C::TILE;
-  static constexpr size_t s = v + C::TILE, dp = s + C::SCORE, ds = dp + C::SCORE;
-  static constexpr size_t acc = ds + C::PROB, lse = acc + C::ACC, delta = lse + 4 * BQ;
+  static constexpr size_t s = v + C::TILE, dp = s + C::SCORE, acc = dp + C::SCORE;
+  static constexpr size_t lse = acc + C::ACC, delta = lse + 4 * BQ;
   static constexpr size_t bytes = delta + 4 * BQ;
 };
 
@@ -369,7 +308,7 @@ __global__ void __launch_bounds__(NTHREADS)
   T* sV = reinterpret_cast<T*>(smem + L::v);
   float* sS = reinterpret_cast<float*>(smem + L::s);
   float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  T* sDS = reinterpret_cast<T*>(smem + (C::kF32 ? L::dp : L::ds));
+  T* sDS = reinterpret_cast<T*>(smem + L::dp);
   float* sAcc = reinterpret_cast<float*>(smem + L::acc);
   float* sLse = reinterpret_cast<float*>(smem + L::lse);
   float* sDelta = reinterpret_cast<float*>(smem + L::delta);
@@ -414,10 +353,10 @@ __global__ void __launch_bounds__(NTHREADS)
       const float s = ok ? sS[r * C::LDS + c] * scale : NEG_INF;
       const float p = expf(s - sLse[r]);
       const float ds = p * (sDP[r * C::LDS + c] - sDelta[r]);
-      sDS[r * C::LDP + c] = from_f<T>(ds);
+      sDS[r * C::LDS + c] = ds;
     }
     __syncwarp();
-    WarpMma<T>::template ab_acc<D, BK>(sDS + r0 * C::LDP, C::LDP, sK, C::LDT,
+    WarpMma<T>::template ab_acc<D, BK>(sDS + r0 * C::LDS, C::LDS, sK, C::LDT,
                                         sAcc + r0 * C::LDA, C::LDA);
     __syncthreads();
   }
@@ -433,8 +372,8 @@ template <typename T, int D>
 struct DkvSmem {
   using C = Cfg<T, D>;
   static constexpr size_t k = 0, v = k + C::TILE, q = v + C::TILE, dO = q + C::TILE;
-  static constexpr size_t s = dO + C::TILE, dp = s + C::SCORE, p = dp + C::SCORE;
-  static constexpr size_t ds = p + C::PROB, dk = ds + C::PROB, dv = dk + C::ACC;
+  static constexpr size_t s = dO + C::TILE, dp = s + C::SCORE, dk = dp + C::SCORE;
+  static constexpr size_t dv = dk + C::ACC;
   static constexpr size_t lse = dv + C::ACC, delta = lse + 4 * BQ, bytes = delta + 4 * BQ;
 };
 
@@ -445,7 +384,6 @@ __global__ void __launch_bounds__(NTHREADS)
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
                      int H, int Tq, int Tk, float scale, int causal) {
-  static_assert(std::is_same<T, float>::value, "bf16 K3 is hopper::flash_dkv_kernel");
   using C = Cfg<T, D>;
   using L = DkvSmem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -455,8 +393,8 @@ __global__ void __launch_bounds__(NTHREADS)
   T* sDO = reinterpret_cast<T*>(smem + L::dO);
   float* sS = reinterpret_cast<float*>(smem + L::s);
   float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  T* sP = reinterpret_cast<T*>(smem + (C::kF32 ? L::s : L::p));
-  T* sDS = reinterpret_cast<T*>(smem + (C::kF32 ? L::dp : L::ds));
+  T* sP = reinterpret_cast<T*>(smem + L::s);
+  T* sDS = reinterpret_cast<T*>(smem + L::dp);
   float* sDK = reinterpret_cast<float*>(smem + L::dk);
   float* sDV = reinterpret_cast<float*>(smem + L::dv);
   float* sLse = reinterpret_cast<float*>(smem + L::lse);
@@ -505,13 +443,13 @@ __global__ void __launch_bounds__(NTHREADS)
       const bool ok = row < Tq && col < Tk && (!causal || col <= row);
       const float p = ok ? expf(sS[r * C::LDS + c] * scale - sLse[r]) : 0.f;
       const float ds = p * (sDP[r * C::LDS + c] - sDelta[r]);
-      sP[r * C::LDP + c] = from_f<T>(p);
-      sDS[r * C::LDP + c] = from_f<T>(ds);
+      sP[r * C::LDS + c] = p;
+      sDS[r * C::LDS + c] = ds;
     }
     __syncthreads();
     // ... and key rows here: dV += P^T dO, dK += dS^T Q.
-    WarpMma<T>::template atb_acc<D, BQ>(sP + r0, C::LDP, sDO, C::LDT, sDV + r0 * C::LDA, C::LDA);
-    WarpMma<T>::template atb_acc<D, BQ>(sDS + r0, C::LDP, sQ, C::LDT, sDK + r0 * C::LDA, C::LDA);
+    WarpMma<T>::template atb_acc<D, BQ>(sP + r0, C::LDS, sDO, C::LDT, sDV + r0 * C::LDA, C::LDA);
+    WarpMma<T>::template atb_acc<D, BQ>(sDS + r0, C::LDS, sQ, C::LDT, sDK + r0 * C::LDA, C::LDA);
     __syncthreads();
   }
   store_tile<T, D>(dk, sdk.t, sDK, scale, jk * BK, Tk);
@@ -529,8 +467,8 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 }
 
 // ===========================================================================
-// bf16 K1 and K3 on Hopper: wgmma with register-resident accumulators, fed by
-// TMA through 2-stage mbarrier rings, warp-specialised.
+// bf16 K1, K2 and K3 on Hopper: wgmma with register-resident accumulators,
+// fed by TMA through mbarrier rings, warp-specialised.
 //
 // A producer (one thread of a producer warp or warpgroup) issues TMA loads of
 // 4-D tensor maps (D, T, H, B) straight from the caller's strided views (the
@@ -538,15 +476,16 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 // zeros. Consumer warpgroups of 64 rows run the products. Tiles sit in shared
 // memory in 128-byte swizzled rows, D split into 64-column panels: TMA writes
 // that layout and the wgmma descriptors read it (K-major for the Q.K^T-style
-// products, MN-major for the V / dO / Q operand of the second product).
+// products, MN-major for the V / K / dO / Q operand of the second product).
 //
 // K1: a block is one consumer warpgroup (64 query rows) and a producer warp,
 // two blocks per SM, K and V in 64-key stages with their own barriers. Step
 // j issues S_j = Q.K_j^T and O += P_{j-1}.V_{j-1} together and runs the
 // softmax of S_j while P.V finishes; the co-resident block's products fill
-// the rest. K3: a block is a producer warpgroup and two consumer warpgroups
-// (128 keys, K and V resident), with setmaxnreg moving registers from the
-// producer to the consumers, which hold dK and dV.
+// the rest. K2 has K1's block shape around S, dP and dQ += dS.K, without
+// the overlap inside the warpgroup. K3: a block is a producer warpgroup
+// and two consumer warpgroups (128 keys, K and V resident), with setmaxnreg
+// moving registers from the producer to the consumers, which hold dK and dV.
 // ===========================================================================
 
 namespace hopper {
@@ -1167,6 +1106,193 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// --- K2 ----------------------------------------------------------------------
+
+// K2 blocks are K1's shape: one consumer warpgroup (warps 0-3, 64 query rows,
+// Q and dO resident) and one producer warp (warp 4) streaming K and V in
+// 64-key stages; two blocks share an SM. K is read twice, by S_j = Q.K_j^T
+// and, one step later, by dQ += dS_j.K_j. Step j issues dQ += dS_{j-1}.K_{j-1},
+// waits for it, releases stage j-1 and only then issues S_j and dP_j, so
+// dS's registers are free before S and dP are written; the co-resident
+// block fills the tensor cores. Issuing S_j and dP_j beside dQ instead, as
+// K1 overlaps its softmax, was slower at D=64 and did not fit D=128 (dQ is
+// 64 f32 a thread there; ptxas spilled and serialised the products in the
+// 168 registers two blocks leave a thread).
+constexpr int kDqRows = 64;
+constexpr int kDqThreads = 160;
+constexpr int kDqKeys = 64;  // keys per stage
+
+template <int D>
+struct DqLayout {
+  static constexpr int stages = D == 64 ? 3 : 2;  // three do not fit two blocks at D=128
+  static constexpr uint32_t tile = kDqKeys * D * 2;  // one [64][D] bf16 tile
+  static constexpr uint32_t q = 0, dO = q + tile;    // resident
+  static constexpr uint32_t kv = dO + tile;          // per stage: K, then V
+  static constexpr uint32_t bars = kv + stages * 2 * tile;  // qd_full, then full, empty per stage
+  static constexpr uint32_t bytes = bars + (1 + 2 * stages) * 8 + 1024;  // + alignment slack
+};
+
+// Grid (H, B, query blocks); a block owns 64 query rows and walks the key
+// tiles its rows see. dQ stays in registers for the whole loop; S, dP, P
+// and dS never leave them.
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 2)
+    flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, Strides sdq, int H, int Tq, int Tk, float scale, int causal) {
+  using L = DqLayout<D>;
+  constexpr int S = L::stages;
+  extern __shared__ __align__(1024) unsigned char hopper_smem[];
+  const uint32_t base = aligned_base(hopper_smem);
+  const uint32_t sq = base + L::q, sdo = base + L::dO, bar_qd = base + L::bars;
+  // Tile j sits in stage j % S, on that stage's (j / S)-th use.
+  const auto full = [=](int j) { return bar_qd + 8 + 16 * (j % S); };
+  const auto empty = [=](int j) { return bar_qd + 16 + 16 * (j % S); };
+  const auto use = [](int j) { return (j / S) & 1; };
+  const auto k_tile = [=](int j) { return base + L::kv + (j % S) * 2 * L::tile; };
+  const auto v_tile = [=](int j) { return base + L::kv + (j % S) * 2 * L::tile + L::tile; };
+  const int n_q = (Tq + kDqRows - 1) / kDqRows;
+  // Blocks start in linear order (x fastest): every head's longest causal
+  // rows first, so the short blocks fill in at the end.
+  const int h = blockIdx.x, b = blockIdx.y, iq = n_q - 1 - blockIdx.z;
+  const int n_k = (Tk + kDqKeys - 1) / kDqKeys;
+  const int last = causal ? min(n_k - 1, ((iq + 1) * kDqRows - 1) / kDqKeys) : n_k - 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_qd, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);   // the producer's expect_tx
+      mbar_init(empty(s), 4);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(bar_qd, 2 * L::tile);
+      tma_tile<D>(&tq, sq, bar_qd, iq * kDqRows, kDqRows, h, b);
+      tma_tile<D>(&tdo, sdo, bar_qd, iq * kDqRows, kDqRows, h, b);
+      for (int j = 0; j <= last; ++j) {
+        mbar_wait(empty(j), use(j) ^ 1);  // the first use of a stage does not wait
+        mbar_expect_tx(full(j), 2 * L::tile);
+        tma_tile<D>(&tk, k_tile(j), full(j), j * kDqKeys, kDqKeys, h, b);
+        tma_tile<D>(&tv, v_tile(j), full(j), j * kDqKeys, kDqKeys, h, b);
+      }
+    }
+  } else {
+    const int t = threadIdx.x, lane = t & 31, quad = lane & 3;
+    const int row_lo = iq * kDqRows;
+    const int row0 = row_lo + 16 * (t >> 5) + (lane >> 2);  // this thread's rows: row0, row0 + 8
+    const float scale_log2 = scale * kLog2e;
+    // The rows' lse (times log2 e) and delta, loaded once. Rows past Tq:
+    // lse = +1e30 makes P = 0 there (the reference's padding).
+    float lse2[2], dlt[2];
+    {
+      const long long bh = (static_cast<long long>(b) * H + h) * Tq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        lse2[r] = row < Tq ? lse[bh + row] * kLog2e : 1e30f;
+        dlt[r] = row < Tq ? delta[bh + row] : 0.f;
+      }
+    }
+    const uint64_t d_q = desc_kmajor(sq), d_do = desc_kmajor(sdo);
+    float acc[D / 2], sc[kDqKeys / 2], dp[kDqKeys / 2];
+    uint32_t dsa[kDqKeys / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // S_j = Q.K_j^T and dP_j = dO.V_j^T from the stage of tile j.
+    const auto issue_s_dp = [&](int j) {
+      const uint64_t d_k = desc_kmajor(k_tile(j)), d_v = desc_kmajor(v_tile(j));
+      unroll<D / 16>([&](auto kk) {
+        constexpr int i = decltype(kk)::value;
+        Wgmma<kDqKeys>::template ss<kmajor_off(i, kDqRows * 128), kmajor_off(i, kDqKeys * 128)>(sc, d_q, d_k, i);
+      });
+      unroll<D / 16>([&](auto kk) {
+        constexpr int i = decltype(kk)::value;
+        Wgmma<kDqKeys>::template ss<kmajor_off(i, kDqRows * 128), kmajor_off(i, kDqKeys * 128)>(dp, d_do, d_v, i);
+      });
+    };
+    // dQ += dS.K_j, K read as the MN-major B operand (as V in K1's P.V).
+    const auto issue_dq = [&](int j) {
+      const uint64_t d_k = desc_mnmajor(k_tile(j), kDqKeys * 128);
+      unroll<kDqKeys / 16>([&](auto kk) {
+        constexpr int i = decltype(kk)::value;
+        Wgmma<D>::template rs<mnmajor_off(i)>(acc, dsa[i], d_k);
+      });
+    };
+    // dp becomes dS_j = P (dP - delta), P = exp(S scale - lse) as one FFMA
+    // and an exp2. Masked keys (the causal diagonal, keys past Tk) get P = 0,
+    // which is what exp(-1e30 - lse) is in the reference.
+    const auto form_ds = [&](int j) {
+      const int key0 = j * kDqKeys;
+      const bool masked = (causal && key0 + kDqKeys - 1 > row_lo) || key0 + kDqKeys > Tk;
+#pragma unroll
+      for (int i = 0; i < kDqKeys / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const int col = key0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+        float p = ex2(fmaf(sc[i], scale_log2, -lse2[r]));
+        if (masked && (col >= Tk || (causal && col > row0 + 8 * r))) p = 0.f;
+        dp[i] = p * (dp[i] - dlt[r]);
+      }
+    };
+
+    mbar_wait(bar_qd, 0);
+    mbar_wait(full(0), 0);
+    wg_fence();
+    issue_s_dp(0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    form_ds(0);
+    to_a_frags(dp, dsa);  // dS rounded to bf16 before dS.K, as the reference
+
+    for (int j = 1; j <= last; ++j) {
+      wg_fence();
+      issue_dq(j - 1);
+      wg_commit();
+      mbar_wait(full(j), use(j));
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(dsa);
+      release(empty(j - 1));
+      wg_fence();
+      issue_s_dp(j);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      form_ds(j);
+      to_a_frags(dp, dsa);
+    }
+    wg_fence();
+    issue_dq(last);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(dsa);
+
+    dq += b * sdq.b + h * sdq.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Tq) continue;
+      bf16* drow = dq + row * sdq.t + 2 * quad;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(drow + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
 // --- host side ---------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1231,6 +1357,27 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
 }
 
 template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dO, const void* lse,
+                      const void* delta, void* dq, Strides sq, Strides sk, Strides sv, Strides sdo,
+                      Strides sdq, int B, int H, int Tq, int Tk, float scale, int causal,
+                      cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err;
+  if ((err = make_map(&mq, q, sq, B, H, Tq, D, kDqRows)) != cudaSuccess ||
+      (err = make_map(&mk, k, sk, B, H, Tk, D, kDqKeys)) != cudaSuccess ||
+      (err = make_map(&mv, v, sv, B, H, Tk, D, kDqKeys)) != cudaSuccess ||
+      (err = make_map(&mdo, dO, sdo, B, H, Tq, D, kDqRows)) != cudaSuccess)
+    return err;
+  const size_t smem = DqLayout<D>::bytes;
+  if ((err = prepare(flash_dq_kernel<D>, smem)) != cudaSuccess) return err;
+  dim3 grid(H, B, (Tq + kDqRows - 1) / kDqRows);
+  flash_dq_kernel<D><<<grid, kDqThreads, smem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), sdq, H, Tq, Tk, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dO, const void* lse,
                        const void* delta, void* dk, void* dv, Strides sq, Strides sk, Strides sv,
                        Strides sdo, Strides sdk, Strides sdv, int B, int H, int Tq, int Tk,
@@ -1254,7 +1401,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 }  // namespace hopper
 
 
-// bf16 goes to the Hopper kernel; f32 to the shared-memory one.
+// bf16 goes to the Hopper kernels; f32 to the shared-memory ones.
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, Strides sq,
                 Strides sk, Strides sv, Strides so, int B, int H, int Tq, int Tk, float scale,
@@ -1278,16 +1425,21 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                const void* delta, void* dq, Strides sq, Strides sk, Strides sv, Strides sdo,
                Strides sdq, int B, int H, int Tq, int Tk, float scale, int causal,
                cudaStream_t stream) {
-  const size_t smem = DqSmem<T, D>::bytes;
-  cudaError_t err = prepare(flash_dq_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_dq_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dO), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), sq, sk, sv, sdo, sdq, H, Tq, Tk,
-      scale, causal);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    return hopper::launch_dq<D>(q, k, v, dO, lse, delta, dq, sq, sk, sv, sdo, sdq, B, H, Tq, Tk, scale,
+                                causal, stream);
+  } else {
+    const size_t smem = DqSmem<T, D>::bytes;
+    cudaError_t err = prepare(flash_dq_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((Tq + BQ - 1) / BQ, H, B);
+    flash_dq_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dO), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dq), sq, sk, sv, sdo, sdq, H, Tq, Tk,
+        scale, causal);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>

@@ -50,8 +50,8 @@ _SIGNATURES = {
     # (x, out, n, stream) and (bits, acc, out, w, n, stream)
     "dvc_bf16_encode": [_P, _P, _L, _P],
     "dvc_bf16_decode_axpy": [_P, _P, _P, _F, _L, _P],
-    # (bits, meta, recv, dst, col0, shard, tile_elems, n_slots, n_chunks, last, stream)
-    "dvc_ring_fold": [_P] * 4 + [_L] * 3 + [_I] * 3 + [_P],
+    # (ranks, n_ranks, nd, step0, step1, meta, meta_words, n_slots, shard, tile_elems, device, stream)
+    "dvc_ring_fold": [_P, _I, _I, _I, _I, _P, _I, _I, _L, _L, _I, _P],
     # (src0, dst0, src0_ld, src1, dst1, src1_ld, rows, cols, dst_ld, stream)
     "dvc_ring_allgather": [_P, _P, _L, _P, _P, _L, _L, _L, _L, _P],
     "dvc_enable_peer_access": [_I, _I],

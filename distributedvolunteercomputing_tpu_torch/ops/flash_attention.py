@@ -11,16 +11,16 @@ K2     ``_bwd_dq_kernel``            ``flash_dq`` / ``flash_dq_plain``
 K3     ``_bwd_dkv_kernel``           ``flash_dkv`` / ``flash_dkv_plain``
 =====  ============================  =====================================
 
-The kernels live in ``csrc/flash_attention.cu``. bf16 K1 and K3 are Hopper
-kernels: a producer feeds a 2-stage ring of K/V (K1) or Q/dO (K3) tiles
+The kernels live in ``csrc/flash_attention.cu``. bf16 K1, K2 and K3 are
+Hopper kernels: a producer feeds a ring of K/V (K1, K2) or Q/dO (K3) tiles
 through TMA tensor maps that read the caller's strided views in place, and
-consumer warpgroups run ``wgmma`` with their accumulators (O, m, l; dK, dV)
-in registers for the whole loop. K2, and K1/K3 in f32 (the f32 parity
-passes), keep the first design: one block per 64-row tile, wmma or scalar
-products from shared memory. On an H100 at the flagship shape (B 8, H 12,
-T 1024, D 64, bf16, causal) K1 is bound by its bytes (~15 us) and K2/K3 by
-tensor-core operations (~20/26 us); PERF.md section 6 has the measured
-times beside those bounds (``chip_smoke.py``'s kernels phase). A wrapper
+consumer warpgroups run ``wgmma`` with their accumulators (O, m, l; dQ; dK,
+dV) in registers for the whole loop. K1-K3 in f32 (the f32 parity passes)
+keep the first design: one block per 64-row tile, scalar products from
+shared memory. On an H100 at the flagship shape (B 8, H 12, T 1024, D 64,
+bf16, causal) K1 is bound by its bytes (~15 us) and K2/K3 by tensor-core
+operations (~20/26 us); PERF.md section 6 has the measured times beside
+those bounds (``chip_smoke.py``'s kernels phase). A wrapper
 given CPU tensors computes the plain version; given CUDA tensors it launches
 its kernel or raises — there is no fallback. ``LAUNCHES`` counts kernel
 launches, one per wrapper call that reached the card.
@@ -135,6 +135,13 @@ def kernel_layout(x: torch.Tensor) -> torch.Tensor:
 def _check(name: str, q: torch.Tensor, *rest: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"{name}: expected CUDA or CPU tensors, got {q.device}")
+    check_layout(name, q, *rest)
+
+
+def check_layout(name: str, q: torch.Tensor, *rest: torch.Tensor) -> None:
+    """Raise unless the kernels take these inputs: dtype, [B, H, T, D] shapes
+    and strides the tensor maps can read in place (on any device, so the
+    rule is testable without a card)."""
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
     if q.dim() != 4 or q.shape[-1] not in SUPPORTED_D:

@@ -22,16 +22,23 @@ K6     ``_ring_fold_kernel``    ``ring_fold`` / ``ring_fold_plain``
 K7     ``_ring_ag_kernel``      ``ring_allgather`` / ``ring_allgather_plain``
 =====  ======================  =======================================
 
-Each wrapper runs the whole ring schedule: nd launches per step, one per
-rank on that rank's CUDA stream (``MeshCodec.streams``), ordered by CUDA
-events and never by a flag a kernel spins on, so ranks that share a card
-cannot deadlock. The rank streams first wait for the callers' current
-streams and the current streams wait for every rank stream at the end, so a
-wrapper is ordered like any other op on the current stream. K6 takes nd
-steps (nd² launches per flush), K7 nd − 1 (nd·(nd − 1) launches per
-result). ``LAUNCHES`` counts the launches. Given CPU tensors a wrapper
-computes its plain version; given CUDA tensors it launches its kernels or
-raises — there is no fallback.
+Each wrapper runs the whole ring schedule, never ordered by a flag a
+kernel spins on, so ranks that share a card cannot deadlock, and is
+ordered like any other op on the current stream. K6 takes nd steps; each
+step is one launch per card (``card_groups``: its grid's y covers that
+card's ranks), with the flush's metadata passed by value in the kernel's
+parameter block (``fold_plan``): no device copy of it, and the partial
+slots are kept across flushes (``RingPartials``). On one card that holds
+all nd ranks a flush is nd launches from one call on the current stream,
+with no event: stream order gives every ordering the ring needs. Across
+cards each card's steps run on the stream of its first rank
+(``MeshCodec.streams``), ordered by CUDA events. K7 takes nd − 1 hops of
+one launch per rank, each on the rank's own stream, ordered by events
+(nd·(nd − 1) launches per result). Streams other than the current one
+first wait for the callers' current streams, and the current streams wait
+for them at the end. ``LAUNCHES`` counts the launches. Given CPU tensors a
+wrapper computes its plain version; given CUDA tensors it launches its
+kernels or raises — there is no fallback.
 
 Sum order: shard b's partial starts on rank b + 1 and travels the ring, each
 rank adding its own chunks' partial (``recv + p``), and the last step adds
@@ -55,6 +62,10 @@ Left out of the reference, each for a reason:
 
 from __future__ import annotations
 
+import array
+import functools
+import itertools
+import struct
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -65,11 +76,17 @@ from distributedvolunteercomputing_tpu_torch.ops.mesh_codec import (
     MeshCodec,
     MeshMeanFolder,
     _launch,
+    _launch_lock,
     widen_bf16,
 )
 
 LAUNCHES: Dict[str, int] = {"ring_fold": 0, "ring_allgather": 0}
 _count_lock = threading.Lock()
+# K6's parameter block (csrc/ring_collective.cu): ranks per launch
+# (kFoldMaxRanks) and int32 metadata words per launch (kFoldMetaWords). Both
+# must equal the kernel's: the launcher refuses anything larger.
+FOLD_MAX_RANKS = 8
+FOLD_META_WORDS = 896
 
 
 def reset_launch_counts() -> None:
@@ -143,6 +160,92 @@ def ring_slots(tiles: Sequence[Sequence[int]], weights, n_tiles: int) -> Tuple[L
             np.asarray(ws, np.float32).view(np.int32),
         ]))
     return uniq, metas
+
+
+class FoldGroup:
+    """Whole slots of one flush that K6 folds as one ring: ``rows`` their
+    tiles, and per rank ``slot_ptr`` [len(rows) + 1], ``chunks`` (rows of
+    the rank's bits, grouped by slot in staging order) and ``weights`` (one
+    per position of ``chunks``)."""
+
+    __slots__ = ("rows", "slot_ptr", "chunks", "weights")
+
+    def __init__(self, rows, slot_ptr, chunks, weights):
+        self.rows, self.slot_ptr, self.chunks, self.weights = rows, slot_ptr, chunks, weights
+
+    def meta(self, ranks: Sequence[int]) -> Tuple[array.array, List[int]]:
+        """K6's metadata for one launch over ``ranks`` (int32: row [U], then
+        per rank slot_ptr | chunk | weight bits) and each rank's offset."""
+        words, offs = list(self.rows), []
+        for d in ranks:
+            ws = self.weights[d]
+            offs.append(len(words))
+            words += self.slot_ptr[d]
+            words += self.chunks[d]
+            words += struct.unpack(f"<{len(ws)}i", struct.pack(f"<{len(ws)}f", *ws))
+        return array.array("i", words), offs
+
+
+def fold_plan(tiles: Sequence[Sequence[int]], weights, n_tiles: int) -> List[FoldGroup]:
+    """The flush's distinct tiles (sorted) split into groups of whole slots
+    whose metadata for all ranks fits ``FOLD_META_WORDS`` int32 words. Each
+    tile's chunks stay in one group in staging order, so folding the groups
+    one after the other adds every element in the order one ring over the
+    whole flush does. A slot whose chunks alone need more words raises."""
+    nd, cap = len(tiles), FOLD_META_WORDS
+    uniq = sorted({int(t) for ts in tiles for t in ts})
+    if uniq and (uniq[0] < 0 or uniq[-1] >= n_tiles):
+        raise ValueError(f"ring: tile index out of [0, {n_tiles})")
+    n = len(uniq)
+    slot = {t: u for u, t in enumerate(uniq)}
+    orders, ptrs = [], []
+    for ts in tiles:
+        sl = [slot[t] for t in ts]
+        orders.append(sorted(range(len(sl)), key=sl.__getitem__))  # stable: staging order within a slot
+        counts = [0] * (n + 1)
+        for u in sl:
+            counts[u + 1] += 1
+        ptrs.append(list(itertools.accumulate(counts)))
+
+    def words(u0: int, u1: int) -> int:  # row and slot_ptr per slot, closing slot_ptr, chunk and weight
+        return (u1 - u0) * (1 + nd) + nd + 2 * sum(ptr[u1] - ptr[u0] for ptr in ptrs)
+
+    groups, u0 = [], 0
+    while u0 < n:
+        u1 = n
+        if words(u0, n) > cap:
+            u1 = u0
+            while u1 < n and words(u0, u1 + 1) <= cap:
+                u1 += 1
+            if u1 == u0:
+                raise ValueError(f"ring: the chunks of tile {uniq[u0]} need more than {cap} metadata words")
+        whole = u0 == 0 and u1 == n
+        runs = orders if whole else [order[ptr[u0] : ptr[u1]] for order, ptr in zip(orders, ptrs)]
+        groups.append(FoldGroup(
+            uniq if whole else uniq[u0:u1],
+            ptrs if whole else [[p - ptr[u0] for p in ptr[u0 : u1 + 1]] for ptr in ptrs],
+            runs,
+            [[float(weights[d][i]) for i in run] for d, run in enumerate(runs)],
+        ))
+        u0 = u1
+    return groups
+
+
+@functools.lru_cache(maxsize=64)
+def _card_layout(devs: Tuple[torch.device, ...]) -> Tuple[List[List[int]], Dict[int, int]]:
+    """(``card_groups(devs)``, rank -> index of its group), once per placement."""
+    cards = card_groups(devs)
+    return cards, {d: c for c, ranks in enumerate(cards) for d in ranks}
+
+
+def card_groups(devs: Sequence[torch.device]) -> List[List[int]]:
+    """Rank indices by card, in rank order, at most ``FOLD_MAX_RANKS`` each:
+    one K6 launch per group per ring step (nd ranks on one card: one launch)."""
+    by_card: Dict[torch.device, List[int]] = {}
+    for d, dev in enumerate(devs):
+        by_card.setdefault(dev, []).append(d)
+    m = FOLD_MAX_RANKS
+    return [ranks[i : i + m] for ranks in by_card.values() for i in range(0, len(ranks), m)]
 
 
 # ---------------------------------------------------------------------------
@@ -220,11 +323,42 @@ def _record(stream: torch.cuda.Stream) -> torch.cuda.Event:
     return ev
 
 
+class RingPartials:
+    """K6's partial slots, per rank [2, n_slots, shard] f32: step s writes
+    slot s % 2 and the right neighbour reads it at step s + 1. Kept across
+    flushes by their owner (the ring folder), grown when a flush needs more
+    slots; the wrappers' fork and join order every reuse."""
+
+    def __init__(self) -> None:
+        self._bufs: Optional[List[torch.Tensor]] = None
+
+    def get(self, devs: Sequence[torch.device], n_slots: int, shard: int) -> List[torch.Tensor]:
+        bufs = self._bufs
+        if (bufs is None or [b.device for b in bufs] != list(devs) or bufs[0].shape[1] < n_slots
+                or bufs[0].shape[2] != shard):
+            bufs = self._bufs = [torch.empty((2, n_slots, shard), dtype=torch.float32, device=dev) for dev in devs]
+        return bufs
+
+
+def _fold_launch(lib, ranks: array.array, nd: int, steps: Tuple[int, int], meta: array.array, n_slots: int,
+                 shard: int, dev: torch.device, stream: torch.cuda.Stream) -> None:
+    """K6 ring steps [steps[0], steps[1]) of the ranks in ``ranks`` (9 int64
+    each), one launch per step; both buffers are host memory that each
+    launch copies by value."""
+    err = lib.dvc_ring_fold(ranks.buffer_info()[0], len(ranks) // 9, nd, steps[0], steps[1], meta.buffer_info()[0],
+                            len(meta), n_slots, shard, nd * shard, dev.index, stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ring_fold: CUDA error {err}: {lib.dvc_error_string(err).decode()}")
+    with _launch_lock:
+        LAUNCHES["ring_fold"] += steps[1] - steps[0]
+
+
 def ring_fold(
     accs: Sequence[torch.Tensor],
     bits: Sequence[torch.Tensor],
     tiles: Sequence[Sequence[int]],
     weights: Sequence[Sequence[float]],
+    partials: RingPartials,
     streams: Optional[Sequence[Optional[torch.cuda.Stream]]] = None,
 ) -> None:
     """K6. Fold one flush into the accumulator shards, in place.
@@ -232,46 +366,67 @@ def ring_fold(
     ``accs[d]``: rank d's f32 shard [n_tiles, shard]; ``bits[d]``: rank d's
     own whole chunks, int16 bf16 bits [k_d, nd·shard] (short chunks
     zero-padded); ``tiles[d]`` / ``weights[d]``: their tiles and weights
-    (host values; a zero weight folds nothing). ``streams``: one per rank
-    (CUDA only)."""
+    (host values; a zero weight folds nothing). ``partials``: the partial
+    slots, kept by the caller across flushes (CUDA only). ``streams``: one per
+    rank (CUDA only; each card's steps run on the stream of its first rank)."""
     nd, n_tiles, shard = _check_accs(accs)
     _check_chunks(accs, bits, tiles, weights, nd, shard)
     if accs[0].device.type == "cpu":
         ring_fold_plain(accs, bits, tiles, weights)
         return
     streams = _check_streams(streams, accs)
-    uniq, metas = ring_slots(tiles, weights, n_tiles)
-    if not uniq:
+    plan = fold_plan(tiles, weights, n_tiles)
+    if not plan:
         return
-    devs = [a.device for a in accs]
-    meta = [torch.from_numpy(m).to(dev) for m, dev in zip(metas, devs)]
-    # Two partial slots per rank: step s writes slot s % 2 and its right
-    # neighbour reads it at step s + 1.
-    bufs = [torch.empty((2, len(uniq), shard), dtype=torch.float32, device=dev) for dev in devs]
-    _fork(streams, devs)
+    from distributedvolunteercomputing_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    devs = tuple(a.device for a in accs)
+    cards, card_of = _card_layout(devs)
+    # One card: its current stream, where stream order is all the ring
+    # needs (there is nothing to fork or join). Several: the stream of each
+    # card's first rank, forked, ordered by events and joined.
+    one_card = len(cards) == 1
+    cstreams = [torch.cuda.current_stream(devs[0])] if one_card else [streams[ranks[0]] for ranks in cards]
+    slots = partials.get(devs, max(len(g.rows) for g in plan), shard)
+    bits_p = [x.data_ptr() if x.numel() else 0 for x in bits]
+    slot_p = [(buf.data_ptr(), buf.data_ptr() + buf.stride(0) * 4) for buf in slots]
+    base = [(bits_p[d], accs[d].data_ptr(), *slot_p[d], *slot_p[(d - 1) % nd], d) for d in range(nd)]
+    if not one_card:
+        _fork(cstreams, devs)
     prev: List[torch.cuda.Event] = []
-    for s in range(nd):
-        last = s == nd - 1
-        cur = []
-        for d in range(nd):
-            left, right, st = (d - 1) % nd, (d + 1) % nd, streams[d]
-            if s > 0:
-                st.wait_event(prev[left])  # its partial of step s - 1
-                if s >= 2 and not last:
-                    st.wait_event(prev[right])  # done reading the slot step s overwrites
-            b = (d - s - 1) % nd
-            dst = accs[d] if last else bufs[d][s % 2]
-            with torch.cuda.stream(st):
-                _launch(
-                    "ring_fold", devs[d],
-                    bits[d].data_ptr() if bits[d].numel() else None, meta[d].data_ptr(),
-                    bufs[left][(s - 1) % 2].data_ptr() if s > 0 else None, dst.data_ptr(),
-                    b * shard, shard, nd * shard, len(uniq), bits[d].shape[0], int(last),
-                    counts=LAUNCHES,
-                )
+    for group in plan:
+        launches = []
+        for ranks in cards:
+            meta, offs = group.meta(ranks)
+            rec = array.array("q")
+            for d, off in zip(ranks, offs):
+                rec.extend((*base[d], off, len(group.chunks[d])))
+            launches.append((rec, meta))
+        if one_card:  # the whole ring in one call: nd launches, stream order between them
+            rec, meta = launches[0]
+            _fold_launch(lib, rec, nd, (0, nd), meta, len(group.rows), shard, devs[0], cstreams[0])
+            continue
+        for s in range(nd):
+            last = s == nd - 1
+            cur = []
+            for c, ranks in enumerate(cards):
+                st = cstreams[c]
+                if prev:
+                    if s == 0:  # the previous group's ring is done everywhere
+                        waits = set(range(len(cards)))
+                    else:
+                        waits = {card_of[(d - 1) % nd] for d in ranks}  # their partials of step s - 1
+                        if s >= 2 and not last:  # done reading the slot step s overwrites
+                            waits |= {card_of[(d + 1) % nd] for d in ranks}
+                    for w in sorted(waits - {c}):
+                        st.wait_event(prev[w])
+                rec, meta = launches[c]
+                _fold_launch(lib, rec, nd, (s, s + 1), meta, len(group.rows), shard, devs[ranks[0]], st)
                 cur.append(_record(st))
-        prev = cur
-    _join(streams, devs)
+            prev = cur
+    if not one_card:
+        _join(cstreams, devs)
 
 
 def ring_allgather(
@@ -335,6 +490,7 @@ class RingMeanFolder(MeshMeanFolder):
             raise ValueError("tile_elems must split over the codec axis")
         super().__init__(codec, n_elems, tile_elems, n_tiles, wire)
         self.ring_flushes = 0
+        self._partials = RingPartials()
 
     def _flush_dev(self, batch: List[Tuple[int, float, bytes]]) -> None:
         """Whole chunks on ranks (rank d takes batch rows [d·per, (d+1)·per),
@@ -348,7 +504,7 @@ class RingMeanFolder(MeshMeanFolder):
         tiles = [[t for t, _, _ in batch[sl]] for sl in own]
         weights = [[w for _, w, _ in batch[sl]] for sl in own]
         with self._lock:
-            ring_fold(self._device_accs(), bits, tiles, weights, streams=self.codec.streams)
+            ring_fold(self._device_accs(), bits, tiles, weights, self._partials, streams=self.codec.streams)
             self.ring_flushes += 1
         with _count_lock:
             self.codec.ring_flushes += 1

@@ -8,7 +8,9 @@ Runs ``chip_smoke.py``'s ring phases on a machine with two or more GPUs:
 ``ring_kernels`` with the ranks on the first nd cards (nd = 2 and 4 as the
 cards allow: the hops are peer reads over NVLink), then again with nd ranks
 sharing cuda:0 (device-local reads), in the same process so the two
-placements are compared on the same cards; then ``dp_parity`` with the two
+placements are compared on the same cards, and with the nd ranks alternating
+over cards 0 and 1 (two ranks per K6 launch on each card, ordered by events
+between the cards); then ``dp_parity`` with the two
 ranks on cards 0 and 1, and ``ring_averaging``: two full-width volunteers on
 a dp=2 mesh over cards 0 and 1. Each check is the one ``chip_smoke.py``
 makes; each phase prints its JSON line. Needs two or more CUDA devices.
@@ -43,6 +45,7 @@ def main() -> int:
     cs.RING_NDS = nds
     cs.ring_kernels_phase(peak, ranks=lambda nd: ([torch.device("cuda", i) for i in range(nd)], True))
     cs.ring_kernels_phase(peak, ranks=lambda nd: ([torch.device("cuda", 0)] * nd, False))
+    cs.ring_kernels_phase(peak, ranks=lambda nd: ([torch.device("cuda", i % 2) for i in range(nd)], True))
     cs.dp_parity_phase()
     cs.averaging_phase(mesh=cs._mesh([torch.device("cuda", 0), torch.device("cuda", 1)]), collective="ring",
                        phase="ring_averaging")

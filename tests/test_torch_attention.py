@@ -151,3 +151,34 @@ def test_fused_qkv_views_are_read_in_place(h, d):
     big = torch.zeros(1, h, 4, d, dtype=torch.bfloat16).as_strided((1, h, 4, d), (1 << 39, 4 * d, d, 1))
     assert not port_flash._aligned(big)
     assert port_flash._aligned(big.as_strided(big.shape, ((1 << 39) - 8, 4 * d, d, 1)))
+
+
+def test_dq_wrapper_refuses_layouts_the_tensor_maps_cannot_read():
+    # K2 reads q, k, v and dO through TMA tensor maps, as K1 and K3 do: a
+    # tensor off the CPU and the card raises before any launch, and the
+    # layout rule refuses what the maps cannot describe (t-stride not a
+    # multiple of 16 bytes, base not 16-byte aligned) and passes the fused
+    # qkv projection's head-split views.
+    h, d, t = 2, 64, 8
+    before = dict(port_flash.LAUNCHES)
+    m = torch.empty(1, h, t, d, device="meta")
+    lse = torch.empty(1, h, t, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        port_flash.flash_dq(m, m, m, m, lse, lse, True)
+    qkv = torch.zeros(1, t, 3 * h * d, dtype=torch.bfloat16)
+    q, k, v = (port_attn.split_heads(x, h) for x in qkv.split(h * d, dim=-1))
+    do = port_attn.split_heads(torch.zeros(1, t, h * d, dtype=torch.bfloat16), h)
+    port_flash.check_layout("flash_dq", q, k, v, do)
+    ragged = port_attn.split_heads(torch.zeros(1, t, h * d + 4, dtype=torch.bfloat16)[..., : h * d], h)
+    shifted = port_attn.split_heads(torch.zeros(1, t, h * d + 8, dtype=torch.bfloat16)[..., 4 : 4 + h * d], h)
+    for bad in (ragged, shifted):
+        with pytest.raises(ValueError, match="not readable in place"):
+            port_flash.check_layout("flash_dq", q, k, v, bad)
+        with pytest.raises(ValueError, match="not readable in place"):
+            port_flash.check_layout("flash_dq", bad, k, v, do)
+    with pytest.raises(ValueError, match="D in"):
+        port_flash.check_layout("flash_dq", torch.zeros(1, h, t, 32, dtype=torch.bfloat16))
+    # CPU tensors take the plain version and count no launch.
+    x = torch.randn(1, h, t, d)
+    dq = port_flash.flash_dq(x, x, x, x, torch.zeros(1, h, t), torch.zeros(1, h, t), True)
+    assert dq.shape == x.shape and port_flash.LAUNCHES == before

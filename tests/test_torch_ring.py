@@ -199,7 +199,7 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     before = dict(mcol.LAUNCHES)
     accs = [torch.zeros(2, 8), torch.zeros(2, 8)]
     bits = [torch.zeros(1, 16, dtype=torch.int16), torch.zeros(0, 16, dtype=torch.int16)]
-    mcol.ring_fold(accs, bits, [[1], []], [[1.0], []])
+    mcol.ring_fold(accs, bits, [[1], []], [[1.0], []], mcol.RingPartials())
     mcol.ring_allgather(accs)
     assert mcol.LAUNCHES == before  # plain versions: nothing launched
     meta = [torch.zeros(2, 8, device="meta")] * 2
@@ -208,7 +208,7 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="2 ranks"):
         mcol.ring_allgather(accs[:1])
     with pytest.raises(ValueError, match="tile index"):
-        mcol.ring_fold(accs, bits, [[2], []], [[1.0], []])
+        mcol.ring_fold(accs, bits, [[2], []], [[1.0], []], mcol.RingPartials())
     # The flush's slot layout: distinct tiles, each rank's chunks by slot.
     uniq, metas = mcol.ring_slots([[5, 2, 5], [2]], [[1.0, 2.0, 3.0], [4.0]], 8)
     assert uniq == [2, 5]
@@ -300,3 +300,132 @@ def test_failure_fails_the_round_and_keeps_local_state():
         np.testing.assert_allclose(r["w"], 2.0, rtol=1e-5)
     assert [st["rounds_ok"] for st in stats] == [1, 1]
     assert stats[0]["aggregation"]["folder_kind"] == "ring" and stats[0]["mesh_codec"]["ops_host"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K6's host side: the by-value metadata, whole-slot groups, launches per card
+# ---------------------------------------------------------------------------
+
+
+def _flush(nd, k, n_tiles, tile, seed):
+    """A flush of k chunks with repeated tiles, split over nd ranks as the
+    ring folder splits a batch (contiguous runs): per-rank bits, tiles,
+    weights (one zero), and random accumulator shards."""
+    rng = np.random.default_rng(seed)
+    ts = rng.integers(0, n_tiles, k).tolist()
+    ws = rng.uniform(0.25, 2.0, k).astype(np.float32).tolist()
+    ws[k // 2] = 0.0
+    bits = torch.from_numpy(native.f32_to_bf16(rng.standard_normal(k * tile).astype(np.float32)).view(np.int16))
+    bits = bits.view(k, tile)
+    per = -(-k // nd)
+    own = [slice(min(d * per, k), min((d + 1) * per, k)) for d in range(nd)]
+    shard = tile // nd
+    acc = torch.from_numpy(rng.standard_normal((n_tiles, tile)).astype(np.float32))
+    accs = [acc[:, d * shard : (d + 1) * shard].contiguous() for d in range(nd)]
+    return accs, [bits[sl].contiguous() for sl in own], [ts[sl] for sl in own], [ws[sl] for sl in own]
+
+
+def _emulate_k6(group, cards, accs, bits):
+    """What the K6 launches of one group compute, read from the packed
+    metadata alone (row | per rank slot_ptr, chunk, weight bits): one ring
+    step per card per step, multiply and add rounded separately."""
+    nd, shard = len(accs), accs[0].shape[1]
+    n = len(group.rows)
+    slots = [torch.zeros(2, n, shard) for _ in range(nd)]
+    metas = [(np.asarray(words), offs) for words, offs in (group.meta(ranks) for ranks in cards)]
+    for s in range(nd):
+        for ranks, (words, offs) in zip(cards, metas):
+            rows = words[:n].tolist()
+            for d, off in zip(ranks, offs):
+                k = len(group.chunks[d])
+                ptr = words[off : off + n + 1]
+                chunk = words[off + n + 1 : off + n + 1 + k]
+                w = words[off + n + 1 + k : off + n + 1 + 2 * k].view(np.float32)
+                cols = slice((d - s - 1) % nd * shard, ((d - s - 1) % nd + 1) * shard)
+                for u in range(n):
+                    p = torch.zeros(shard)
+                    for j in range(ptr[u], ptr[u + 1]):
+                        p = p + torch.tensor(w[j]) * mc.widen_bf16(bits[d][chunk[j], cols])
+                    if s > 0:
+                        p = slots[(d - 1) % nd][(s - 1) % 2][u] + p
+                    if s == nd - 1:
+                        accs[d][rows[u]] = accs[d][rows[u]] + p
+                    else:
+                        slots[d][s % 2][u] = p
+
+
+@pytest.mark.parametrize("nd,k", [(2, 16), (4, 9), (3, 1)])
+def test_fold_meta_round_trips_to_ring_slots(nd, k):
+    """A flush that fits one launch: K6's by-value metadata holds exactly
+    what ``ring_slots`` lays out (slot_ptr, chunk order, rows), with each
+    chunk's weight at its position."""
+    _, _, tiles, weights = _flush(nd, k, 7, 8 * nd, seed=nd + k)
+    uniq, ref = mcol.ring_slots(tiles, weights, 7)
+    (group,) = mcol.fold_plan(tiles, weights, 7)
+    assert group.rows == uniq
+    words, offs = group.meta(range(nd))
+    words = np.asarray(words)
+    u = len(uniq)
+    np.testing.assert_array_equal(words[:u], uniq)
+    for d in range(nd):
+        kd = len(tiles[d])
+        m, off = ref[d], offs[d]
+        np.testing.assert_array_equal(words[off : off + u + 1], m[: u + 1])
+        np.testing.assert_array_equal(words[off + u + 1 : off + u + 1 + kd], m[u + 1 : u + 1 + kd])
+        np.testing.assert_array_equal(m[u + 1 + kd : 2 * u + 1 + kd], uniq)
+        w_by_chunk = m[2 * u + 1 + kd :].view(np.float32)
+        np.testing.assert_array_equal(words[off + u + 1 + kd : off + u + 1 + 2 * kd].view(np.float32),
+                                      w_by_chunk[m[u + 1 : u + 1 + kd]])
+    assert len(words) <= mcol.FOLD_META_WORDS
+
+
+@pytest.mark.parametrize("nd,cap", [(2, 40), (3, 64), (4, 120)])
+def test_oversized_flush_splits_into_whole_slot_groups(nd, cap, monkeypatch):
+    """A flush whose metadata passes the cap folds as several rings of
+    whole slots: one after the other they give ``ring_fold_plain``'s result
+    on the whole flush bit for bit, and so does K6's arithmetic read from
+    each group's packed metadata."""
+    accs, bits, tiles, weights = _flush(nd, 40, 23, 8 * nd, seed=cap)
+    want = [a.clone() for a in accs]
+    mcol.ring_fold_plain(want, bits, tiles, weights)
+    monkeypatch.setattr(mcol, "FOLD_META_WORDS", cap)
+    plan = mcol.fold_plan(tiles, weights, 23)
+    assert len(plan) > 1 and [t for g in plan for t in g.rows] == sorted({t for ts in tiles for t in ts})
+    by_groups, emulated = [a.clone() for a in accs], [a.clone() for a in accs]
+    for group in plan:
+        assert len(group.meta(range(nd))[0]) <= cap
+        sub_tiles = [[tiles[d][i] for i in group.chunks[d]] for d in range(nd)]
+        mcol.ring_fold_plain(by_groups, [bits[d][group.chunks[d]] for d in range(nd)], sub_tiles, group.weights)
+        _emulate_k6(group, mcol.card_groups([torch.device("cuda", 0)] * nd), emulated, bits)
+    for got in (by_groups, emulated):
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    with pytest.raises(ValueError, match="metadata words"):
+        mcol.fold_plan([[3] * 60] + [[]] * (nd - 1), [[1.0] * 60] + [[]] * (nd - 1), 23)
+
+
+@pytest.mark.parametrize("cards,want,per_flush", [
+    ([0, 0], [[0, 1]], 2),
+    ([0, 0, 0, 0], [[0, 1, 2, 3]], 4),
+    ([0, 1, 2, 3], [[0], [1], [2], [3]], 16),
+    ([0, 1, 0, 1], [[0, 2], [1, 3]], 8),
+    ([0] * 10, [list(range(8)), [8, 9]], 20),
+])
+def test_card_groups_give_one_launch_per_card_per_step(cards, want, per_flush):
+    """nd ranks on one card: one K6 launch per ring step, nd per flush; on
+    distinct cards one per rank, nd² per flush; at most FOLD_MAX_RANKS ranks
+    per launch. The emulated launches of a two-card placement compute what
+    one card's do."""
+    devs = [torch.device("cuda", c) for c in cards]
+    groups = mcol.card_groups(devs)
+    assert groups == want
+    nd = len(devs)
+    assert nd * len(groups) == per_flush  # nd ring steps, one launch per group each
+    if nd == 4:
+        accs, bits, tiles, weights = _flush(nd, 11, 5, 32, seed=7)
+        (group,) = mcol.fold_plan(tiles, weights, 5)
+        one, spread = [a.clone() for a in accs], [a.clone() for a in accs]
+        _emulate_k6(group, [[0, 1, 2, 3]], one, bits)
+        _emulate_k6(group, groups, spread, bits)
+        for a, b in zip(one, spread):
+            assert torch.equal(a, b)
