@@ -30,10 +30,22 @@ Phases, each printing one JSON line:
             plain versions at n = 124,439,808 (gpt2_small's flat buffer),
             524,289 and 1000, with special values (±0, ±inf, NaN of both
             signs and with payloads, subnormals, the largest finite value,
-            values that round up to inf): K4 bit-equal on every lane, K5
-            within ``CODEC_TOL``; kernel / plain / library times, the bound,
-            and the wall time of one ``MeshCodec.encode_bf16`` (numpy in and
-            out) at the flagship n;
+            values that round up to inf): K4 bit-equal on every lane, the
+            flat K5 within ``CODEC_TOL``; K4 and ``x.to(bfloat16)`` timed by
+            device time in turns, with the bound, and the wall time of one
+            ``MeshCodec.encode_bf16`` (numpy in and out) at the flagship n;
+            then K5 as the folder calls it, ``bf16_fold_chunks`` against
+            ``fold_chunks_plain`` on four staged flushes: the flagship one
+            (16 chunks of 1 MiB, repeated tiles, the short tail tile, a zero
+            weight), a ragged one at nd = 2 (shards not a multiple of 8, read
+            from whole rows at each rank's column: the scalar path), special
+            bit patterns, and 600 small chunks whose chunk table splits into
+            launches of whole tiles (``k5_launch_range``): bit-equal on
+            finite lanes, inf and NaN lanes matching; per flagship flush the
+            wrapper's time, the kernel's device time (profiler), the plain
+            version's, one ``index_add_`` of the decoded batch and the bound
+            (cycling over flushes whose bytes exceed the L2), beside the
+            flat K5 per 1 MiB chunk as the first design launched it;
 6. averaging two ``Volunteer``s in this process share the card and train
             gpt2_small at full width, averaging every 2 steps in blocking
             sync rounds over localhost TCP on the bf16 wire (``AVG_OVERLAP``
@@ -44,8 +56,10 @@ Phases, each printing one JSON line:
             2 committed rounds on each and none degraded (a round one
             volunteer runs alone is skipped, and allowed), at least one
             contribution streamed through the leader's device folder, every
-            codec op on the card (no host op), K4/K5 launch counts equal to
-            the counts the groups formed and the committed rounds imply
+            codec op on the card (no host op), K4 launch counts equal to
+            the count the groups formed and the committed rounds imply and K5
+            one launch per rank per flush of the leader's folder, as the
+            aggregators' ``folder_flushes`` gauge counts them
             (``expected_codec_launches``), one streamed round's results
             within ``AVG_TOL`` of the weighted mean of the two payloads, and
             finite losses.
@@ -136,11 +150,15 @@ SOURCE = "distributedvolunteercomputing_tpu_torch/csrc/flash_attention.cu"
 CODEC_SOURCE = "distributedvolunteercomputing_tpu_torch/csrc/bf16_codec.cu"
 CODEC_KERNELS = {  # name -> (TPU kernel it replaces, id)
     "bf16_encode": ("distributedvolunteercomputing_tpu/ops/mesh_codec.py:137", "K4"),
-    "bf16_decode_axpy": ("distributedvolunteercomputing_tpu/ops/mesh_codec.py:145", "K5"),
+    "bf16_fold_chunks": ("distributedvolunteercomputing_tpu/ops/mesh_codec.py:145", "K5"),
 }
 FLAT_N = 124_439_808  # gpt2_small's parameters, the averaged flat buffer
-CHUNK_N = (1 << 20) // 2  # one 1 MiB bf16 wire chunk: what one K5 launch folds
+CHUNK_N = (1 << 20) // 2  # one 1 MiB bf16 wire chunk: what one K5 launch folded in the first design
 CODEC_SIZES = (FLAT_N, 524_289, 1000)
+# K5's chunk table (csrc/bf16_codec.cu kFoldWords): int32 words per launch,
+# 3 per tile, 3 per chunk and one more.
+K5_FOLD_WORDS = 2032
+FLUSH_SETS = 4  # staged flushes cycled when timing K5, disjoint in tiles and bits: their bytes exceed the L2
 # K5 against its plain version: the reference's own limit for the fold
 # (tests/test_mesh_codec.py); both sides round the product and the sum once,
 # so they are expected to agree bit for bit.
@@ -655,28 +673,37 @@ def codec_phase(peak) -> dict:
         if not bool(((inplace == fold_k) | (torch.isnan(inplace) & torch.isnan(fold_k))).all().item()):
             raise AssertionError(f"in-place K5 differs from out-of-place at n={n}")
         if n == FLAT_N:
-            # K4 at the flagship n (the contribution and result encodes).
+            # K4 at the flagship n (the contribution and result encodes),
+            # kernel and library by device time in turns: kernel, library,
+            # library, kernel.
             enc_bytes = 6 * n
+            calls = {"ms": lambda: mc.bf16_encode(x), "library_ms": lambda: x.to(torch.bfloat16).view(torch.int16)}
+            turns = {key: [] for key in calls}
+            for key in ("ms", "library_ms", "library_ms", "ms"):
+                turns[key].append(device_ms(calls[key], reps=10)["ms"])
             row["K4"] = {
-                "n": n, "ms": time_ms(lambda: mc.bf16_encode(x)),
+                "n": n, **{key: statistics.median(v) for key, v in turns.items()},
+                "turns_ms": turns, "ms_method": DEVICE_MS_METHOD,
                 "plain_ms": time_ms(lambda: mc.encode_bf16_plain(x), iters=5),
-                "library_ms": time_ms(lambda: x.to(torch.bfloat16).view(torch.int16)),
                 "library_call": "x.to(torch.bfloat16).view(torch.int16) (NaN bits differ: 0xffff)",
                 "bytes": enc_bytes, "flops": 0,
                 "bound_ms": enc_bytes / mem_rate * 1e3, "bound_by": "bytes",
             }
-            # K5 over the whole buffer, and per 1 MiB chunk (one launch of the
-            # folder), cycling over enough chunks to leave the L2.
+            # The flat K5 over the whole buffer, and per 1 MiB chunk (one
+            # launch of the first design's folder), cycling over enough
+            # chunks to leave the L2; in place on a copy of acc, as the
+            # folder folded (out of place adds the wrapper's copy of acc).
             fold_bytes, fold_flops = 10 * n, 2 * n
+            scratch = acc.clone()
             whole = {
-                "n": n, "ms": time_ms(lambda: mc.bf16_decode_axpy(acc, bits_p, w)),
+                "n": n, "ms": time_ms(lambda: mc.bf16_decode_axpy(scratch, bits_p, w, out=scratch)),
                 "plain_ms": time_ms(lambda: mc.decode_axpy_plain(acc, bits_p, w), iters=5),
                 "library_ms": time_ms(lambda: torch.add(acc, bits_p.view(torch.bfloat16), alpha=w)),
                 "bytes": fold_bytes, "flops": fold_flops,
                 "bound_ms": max(fold_bytes / mem_rate, fold_flops / f32_rate) * 1e3,
             }
             sets = 16  # 16 x 5.24 MB = 84 MB > L2: each call finds its chunk in device memory
-            views = [(acc[i * CHUNK_N : (i + 1) * CHUNK_N], bits_p[i * CHUNK_N : (i + 1) * CHUNK_N])
+            views = [(scratch[i * CHUNK_N : (i + 1) * CHUNK_N], bits_p[i * CHUNK_N : (i + 1) * CHUNK_N])
                      for i in range(sets)]
             cycle = itertools.cycle(views)
 
@@ -686,16 +713,18 @@ def codec_phase(peak) -> dict:
             cb, cf = 10 * CHUNK_N, 2 * CHUNK_N
             chunk = {
                 "n": CHUNK_N,
-                "ms": chunk_ms(lambda a, bits: mc.bf16_decode_axpy(a, bits, w)),
+                "ms": chunk_ms(lambda a, bits: mc.bf16_decode_axpy(a, bits, w, out=a)),
                 "plain_ms": chunk_ms(lambda a, bits: mc.decode_axpy_plain(a, bits, w)),
                 "library_ms": chunk_ms(lambda a, bits: torch.add(a, bits.view(torch.bfloat16), alpha=w)),
-                # One launch as the folder makes it, host launch gap included.
-                "single_launch_ms": time_cold_ms(lambda i: mc.bf16_decode_axpy(views[i][0], views[i][1], w), sets),
+                # One launch with its host call, as the first design's folder made 16 a flush.
+                "single_launch_ms": time_cold_ms(
+                    lambda i: mc.bf16_decode_axpy(views[i][0], views[i][1], w, out=views[i][0]), sets),
                 "library_call": "torch.add(acc, bits.view(torch.bfloat16), alpha=w)",
                 "bytes": cb, "flops": cf, "bound_ms": max(cb / mem_rate, cf / f32_rate) * 1e3,
                 "bound_by": "bytes" if cb / mem_rate >= cf / f32_rate else "operations",
             }
             row["K5"] = {"chunk": chunk, "whole_buffer": whole}
+            del scratch, views, cycle
             # One encode as the averager calls it: numpy in, numpy out.
             codec = mc.MeshCodec(device="cuda")
             host = x.cpu().numpy()
@@ -709,11 +738,178 @@ def codec_phase(peak) -> dict:
                 raise AssertionError("MeshCodec.encode_bf16 differs from the plain encode")
             row["encode_bf16_wall_ms"] = statistics.median(walls)
             row["encode_bf16_wall_ms_all"] = walls
+            # The flat K5 as the codec's own entry point calls it.
+            got = codec.decode_axpy(acc.cpu().numpy(), bits_p.cpu().numpy().view(np.uint16), w)
+            eq = bits_equal(torch.from_numpy(got).cuda(), fold_k)
+            if eq["finite_lanes_differing"] or not eq["nonfinite_match"]:
+                raise AssertionError(f"MeshCodec.decode_axpy differs from bf16_decode_axpy: {eq}")
             results = row
         emit(row)
         del x, acc, bits_k, bits_p, fold_k, fold_p
     torch.cuda.empty_cache()
+    results["K5"]["flush"] = fold_phase(mem_rate, f32_rate)
+    torch.cuda.empty_cache()
     return results
+
+
+def codec_flushes(kind: str, gen: torch.Generator, rng, sets: int = FLUSH_SETS) -> dict:
+    """``sets`` staged flushes of gpt2_small's flat buffer as the folder
+    stages them, over disjoint tiles, each with its own bits (a short tail
+    chunk zero-padded), and the accumulator [n_tiles, tile] they fold into.
+    ``flagship``: 16 chunks of 1 MiB (12 tiles, the short tail tile, three
+    repeats; one zero weight). ``small``: 256 chunks of 64 KiB (a transport's
+    ``chunk_bytes`` of 1 << 16), every tile distinct."""
+    import numpy as np
+
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+
+    tile = CHUNK_N if kind == "flagship" else 1 << 15
+    n_tiles = -(-FLAT_N // tile)
+    tail = FLAT_N - (n_tiles - 1) * tile
+    order = rng.permutation(n_tiles - 1)
+    out = []
+    for s in range(sets):
+        if kind == "flagship":
+            ts = order[12 * s : 12 * (s + 1)].tolist() + [n_tiles - 1]
+            ts = ts + ts[:3]
+        else:
+            ts = order[256 * s : 256 * (s + 1)].tolist()
+        k = len(ts)
+        ws = rng.uniform(0.25, 2.0, k).astype(np.float32).tolist()
+        ws[5] = 0.0
+        lens = [tail if t == n_tiles - 1 else tile for t in ts]
+        bits = mc.encode_bf16_plain(torch.randn(k * tile, generator=gen, device="cuda")).view(k, tile)
+        for i, n in enumerate(lens):
+            bits[i, n:] = 0
+        cols = {t: n for t, n in zip(ts, lens)}
+        out.append({
+            "tiles": ts, "weights": ws, "lens": lens, "bits": bits,
+            # The library yardstick's input: the weighted decoded batch.
+            "dec": torch.tensor(ws, device="cuda")[:, None] * mc.widen_bf16(bits),
+            "tiles_t": torch.tensor(ts, device="cuda"),
+            # Bits read once, every touched accumulator element read and written once.
+            "bytes": 2 * sum(lens) + 8 * sum(cols.values()), "flops": 2 * sum(lens),
+        })
+    acc = torch.randn((n_tiles, tile), generator=gen, device="cuda")
+    return {"kind": kind, "tile": tile, "n_tiles": n_tiles, "sets": out, "acc": acc}
+
+
+def k5_launch_range(tiles, lens) -> tuple:
+    """The fewest and most K5 launches a batch's chunk table may take, from
+    its word count alone: W = 3·U + 3·K for U distinct tiles and K chunks of
+    non-zero length, one more word per launch, at most ``K5_FOLD_WORDS`` a
+    launch. Every launch but the last stopped short of a tile that needs at
+    most 3 + 3·c words (c its most chunks of one tile)."""
+    counts = collections.Counter(t for t, n in zip(tiles, lens) if n > 0)
+    words = 3 * len(counts) + 3 * sum(counts.values())
+    if words + 1 <= K5_FOLD_WORDS:
+        return 1, 1
+    return -(-words // (K5_FOLD_WORDS - 1)), 1 + words // (K5_FOLD_WORDS - 4 - 3 * max(counts.values()))
+
+
+def fold_phase(mem_rate: float, f32_rate: float) -> dict:
+    """K5 as the folder calls it: ``bf16_fold_chunks`` against
+    ``fold_chunks_plain`` on four staged flushes (see the module doc),
+    bit-equal on finite lanes with inf and NaN lanes matching, and its
+    launches within ``k5_launch_range``; then per flagship flush (cycling
+    over ``FLUSH_SETS`` flushes) the wrapper's time (host table and launch
+    included), the kernel's device time from the profiler, the plain
+    version's, one ``index_add_`` of the decoded batch, and the bound."""
+    import numpy as np
+
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+
+    gen = torch.Generator(device="cuda").manual_seed(5150)
+    rng = np.random.default_rng(5150)
+    flag = codec_flushes("flagship", gen, rng)
+    f0 = flag["sets"][0]
+    # ragged: nd = 2 ranks of 4101 columns, each reading whole rows from its
+    # own column (rank 1 at an odd offset), the tail tile shorter than one shard.
+    r_tile, r_n = 2 * 4101, 3 * 2 * 4101 + 3000
+    r_tiles = [0, 3, 1, 3, 2, 0, 3]
+    r_lens = [min(r_tile, r_n - t * r_tile) for t in r_tiles]
+    r_bits = mc.encode_bf16_plain(torch.randn(len(r_tiles) * r_tile, generator=gen, device="cuda"))
+    r_bits = r_bits.view(len(r_tiles), r_tile)
+    # special: random bit patterns (subnormals, inf, NaN) with the special
+    # values up front in every chunk.
+    sp_bits = torch.randint(-(2**15), 2**15, (6, 65536), generator=gen, device="cuda", dtype=torch.int32)
+    sp_bits = sp_bits.to(torch.int16)
+    sp_bits[:, : len(RING_SPECIAL_BF16)] = torch.from_numpy(
+        np.array(RING_SPECIAL_BF16, np.uint16).view(np.int16)).cuda()
+    # split: 600 chunks of 1024 over 300 tiles, more table than one launch holds.
+    s_tiles = rng.permutation(np.repeat(np.arange(300), 2)).tolist()
+    s_lens = [1019 if t == 299 else 1024 for t in s_tiles]
+    r_weights = [1.5, 0.0, 0.75, 2.0, 0.5, 1.25, 1.0]
+    cases = [
+        ("flagship", flag["acc"], [(f0["bits"], f0["tiles"], f0["weights"], f0["lens"], 0, slice(None))]),
+        ("ragged", torch.randn((4, r_tile), generator=gen, device="cuda"), [
+            (r_bits, r_tiles, r_weights,
+             [min(max(n - r * 4101, 0), 4101) for n in r_lens], r * 4101, slice(r * 4101, (r + 1) * 4101))
+            for r in range(2)]),
+        ("special", torch.randn((3, 65536), generator=gen, device="cuda"),
+         [(sp_bits, [0, 1, 2, 1, 0, 2], [1.0, 0.0, 2.5, 0.5, 1.5, 3.0], [65536] * 6, 0, slice(None))]),
+        ("split", torch.randn((300, 1024), generator=gen, device="cuda"), [
+            (mc.encode_bf16_plain(torch.randn(600 * 1024, generator=gen, device="cuda")).view(600, 1024),
+             s_tiles, rng.uniform(0.5, 2.0, 600).tolist(), s_lens, 0, slice(None))]),
+    ]
+    out = {"cases": []}
+    for name, acc0, ranks in cases:
+        row = {"phase": "codec_fold", "case": name, "ranks": len(ranks), "ranks_vs_plain": []}
+        ok = True
+        for bits, tiles, weights, lens, col0, cols in ranks:
+            acc_k = acc0[:, cols].clone(memory_format=torch.contiguous_format)
+            acc_p = acc0[:, cols].clone(memory_format=torch.contiguous_format)
+            before = mc.LAUNCHES["bf16_fold_chunks"]
+            made = mc.bf16_fold_chunks(acc_k, bits, tiles, weights, lens, col0)
+            launched = mc.LAUNCHES["bf16_fold_chunks"] - before
+            mc.fold_chunks_plain(acc_p, bits, tiles, weights, lens, col0)
+            torch.cuda.synchronize()
+            eq = bits_equal(acc_k, acc_p)
+            lo, hi = k5_launch_range(tiles, lens)
+            eq.update(chunks=len(tiles), distinct_tiles=len(set(tiles)), shard=acc_k.shape[1], col0=col0,
+                      launches=launched, launches_expected=[lo, hi])
+            row["ranks_vs_plain"].append(eq)
+            ok = ok and eq["finite_lanes_differing"] == 0 and eq["nonfinite_match"]
+            ok = ok and made == launched and lo <= launched <= hi and (name != "split" or launched >= 2)
+            del acc_k, acc_p
+        row["ok"] = bool(ok)
+        emit(row)
+        if not ok:
+            raise AssertionError(f"K5 (bf16_fold_chunks) disagrees with fold_chunks_plain ({name})")
+        out["cases"].append(row)
+
+    acc, sets = flag["acc"], flag["sets"]
+    cycle = itertools.cycle(sets)
+
+    def fold():
+        f = next(cycle)
+        mc.bf16_fold_chunks(acc, f["bits"], f["tiles"], f["weights"], f["lens"], 0)
+
+    def plain():
+        f = next(cycle)
+        mc.fold_chunks_plain(acc, f["bits"], f["tiles"], f["weights"], f["lens"], 0)
+
+    def library():
+        f = next(cycle)
+        acc.index_add_(0, f["tiles_t"], f["dec"])
+
+    nbytes, flops = f0["bytes"], f0["flops"]
+    out["timing"] = {
+        "chunks": len(f0["tiles"]), "distinct_tiles": len(set(f0["tiles"])),
+        "launches_per_flush": 1,
+        "device_ms": kernel_device_ms(fold, "bf16_fold_kernel", iters=4 * FLUSH_SETS),
+        "wrapper_ms": time_ms(fold, iters=8 * FLUSH_SETS),
+        "plain_ms": time_ms(plain, iters=2 * FLUSH_SETS),
+        "library_ms": time_ms(library, iters=8 * FLUSH_SETS),
+        "library_call": "acc.index_add_(0, tiles, w * widen(bits)) of the flush's batch, decode not timed",
+        "bytes": nbytes, "flops": flops,
+        "bound_ms": max(nbytes / mem_rate, flops / f32_rate) * 1e3,
+        "bound_by": "bytes" if nbytes / mem_rate >= flops / f32_rate else "operations",
+        "max_abs_err": max(r["max_abs_err"] for c in out["cases"] for r in c["ranks_vs_plain"]),
+    }
+    emit({"phase": "codec_fold", "timing": out["timing"]})
+    del flag, cases, sets, acc
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -734,7 +930,7 @@ AVG_OVERLAP = False
 
 
 def expected_codec_launches(
-    groups_formed: int, committed_rounds: int, streamed_contribs: int,
+    groups_formed: int, committed_rounds: int, folder_flushes: int,
     nd: int = 1, ring: bool = False, ring_flushes: int = 0, ring_results: int = 0, cards: int = 1,
 ) -> dict:
     """Launches the round protocol implies for two volunteers sharing the
@@ -753,18 +949,20 @@ def expected_codec_launches(
     one member, whose fetch the leader encodes once (``_wire_stream`` of
     ``st.result``); a skipped round has no result to encode. A codec of
     ``nd`` ranks launches K4 once per rank for each encode.
-    K5: one per 1 MiB chunk of every contribution that streamed into the
-    leader's staged folder (``MeshMeanFolder._flush_dev``), none under the
-    ring. Round 1 parks the member's push dense (the leader arms after its
-    first pack); dense feeds are plain ``add_``.
+    K5: one per rank per flush of the leader's staged folder
+    (``MeshMeanFolder._flush_dev`` folds a whole staged batch in one launch;
+    a flush of at most 16 chunks of 1 MiB, 97 table words, always fits one),
+    counted by the aggregators' ``folder_flushes`` gauge (about 15 flushes
+    per streamed contribution of gpt2_small's 249 MB); none under the ring.
+    Round 1 parks the member's push dense (the leader arms after its first
+    pack); dense feeds are plain ``add_``.
     K6 / K7 (ring, ``nd`` ranks on ``cards`` cards): nd steps of one launch
     per card per ring flush (a flagship flush of 1 MiB chunks always fits
     one launch's metadata), nd - 1 hops of nd launches per ring result,
     counted by the codec's ``ring_flushes`` and ``ring_results`` gauges."""
-    chunks = -(-FLAT_N * 2 // (1 << 20))
     out = {
         "bf16_encode": nd * (2 * groups_formed + committed_rounds),
-        "bf16_decode_axpy": 0 if ring else chunks * streamed_contribs,
+        "bf16_fold_chunks": 0 if ring else nd * folder_flushes,
     }
     if ring:
         out.update(ring_fold=nd * cards * ring_flushes, ring_allgather=nd * (nd - 1) * ring_results)
@@ -879,8 +1077,9 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
     nd = codec_stats["devices"]
     ring = collective == "ring"
     cards = k6_launch_groups(mesh.flat()) if mesh is not None else 1
+    folder_flushes = sum(a.get("folder_flushes", 0) for a in agg)
     expect = expected_codec_launches(
-        sum(groups_formed), rounds[0], streamed, nd=nd, ring=ring,
+        sum(groups_formed), rounds[0], folder_flushes, nd=nd, ring=ring,
         ring_flushes=codec_stats["ring_flushes"], ring_results=codec_stats["ring_results"], cards=cards,
     )
     folder = "ring" if ring else "staged"
@@ -895,7 +1094,9 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
         "round_s": rounds_s, "losses": losses, "final_loss": [s["final_loss"] for s in summaries],
         "aggregation": agg, "mesh_codec": codec_stats, "hedge": [s.get("hedge") for s in summaries],
         "wan_bytes_sent": [s["wan_bytes_sent"] for s in summaries],
-        "round_launches": round_launches, "groups_formed": groups_formed, "packs": packs, "fetches": fetches, "streamed_contribs": streamed,
+        "round_launches": round_launches, "groups_formed": groups_formed, "packs": packs, "fetches": fetches,
+        "streamed_contribs": streamed, "folder_flushes": folder_flushes,
+        "k5_launches_per_streamed_contrib": launches["bf16_fold_chunks"] / max(1, streamed),
         "spans": spans,  # per volunteer: round phases (join, encode, wire, fold, commit, fetch), count and seconds
         "launches": launches, "codec_launches_expected": expect,
         "codec_launches_per_committed_round": {k: launches[k] / max(1, rounds[0]) for k in expect},
@@ -1466,16 +1667,24 @@ def main() -> int:
             "library_call": "F.scaled_dot_product_attention forward" if lib == "sdpa_fwd"
             else "F.scaled_dot_product_attention forward+backward (K1+K2+K3 work)",
         })
-    for kname, (replaces, kid), r, err in (
-        ("bf16_encode", CODEC_KERNELS["bf16_encode"], codec["K4"], codec["encode_max_abs_err"]),
-        ("bf16_decode_axpy", CODEC_KERNELS["bf16_decode_axpy"], codec["K5"]["chunk"], codec["fold_max_abs_err"]),
-    ):
-        kernels.append({
-            "name": kname, "id": kid, "route": "cuda", "source": CODEC_SOURCE, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": err, "n": r["n"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "library_call": r["library_call"],
-        })
+    k4, k5 = codec["K4"], codec["K5"]["flush"]["timing"]
+    kernels.append({
+        "name": "bf16_encode", "id": "K4", "route": "cuda", "source": CODEC_SOURCE,
+        "replaces": CODEC_KERNELS["bf16_encode"][0], "launches": launches["bf16_encode"],
+        "max_abs_err": codec["encode_max_abs_err"], "n": k4["n"], "ms": k4["ms"], "ms_method": k4["ms_method"],
+        "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+        "library_ms": k4["library_ms"], "library_call": k4["library_call"],
+    })
+    kernels.append({
+        "name": "bf16_fold_chunks", "id": "K5", "route": "cuda", "source": CODEC_SOURCE,
+        "replaces": CODEC_KERNELS["bf16_fold_chunks"][0], "launches": launches["bf16_fold_chunks"],
+        "max_abs_err": max(k5["max_abs_err"], codec["fold_max_abs_err"]),
+        "per": f"staged flush of {k5['chunks']} chunks of 1 MiB ({k5['distinct_tiles']} tiles)",
+        "ms": k5["device_ms"], "ms_method": "profiler device time of bf16_fold_kernel per flush",
+        "wrapper_ms": k5["wrapper_ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"], "library_call": k5["library_call"],
+        "chunk_ms": codec["K5"]["chunk"]["ms"],
+    })
     flag = ring[("flagship", 2)]
     for kname, (replaces, kid) in RING_KERNELS.items():
         r = flag["timing"]["K6" if kid == "K6" else "K7"]

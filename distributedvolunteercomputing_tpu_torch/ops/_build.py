@@ -47,9 +47,10 @@ _SIGNATURES = {
     "dvc_flash_fwd": [_I, _I] + [_P] * 5 + [_L] * 12 + [_I] * 4 + [_F, _I, _P],
     "dvc_flash_dq": [_I, _I] + [_P] * 7 + [_L] * 15 + [_I] * 4 + [_F, _I, _P],
     "dvc_flash_dkv": [_I, _I] + [_P] * 8 + [_L] * 18 + [_I] * 4 + [_F, _I, _P],
-    # (x, out, n, stream) and (bits, acc, out, w, n, stream)
+    # (x, out, n, stream)
     "dvc_bf16_encode": [_P, _P, _L, _P],
-    "dvc_bf16_decode_axpy": [_P, _P, _P, _F, _L, _P],
+    # (bits, acc, bits_ld, acc_ld, col0, words, n_words, n_tiles, n_chunks, stream)
+    "dvc_bf16_fold_chunks": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _P],
     # (ranks, n_ranks, nd, step0, step1, meta, meta_words, n_slots, shard, tile_elems, device, stream)
     "dvc_ring_fold": [_P, _I, _I, _I, _I, _P, _I, _I, _L, _L, _I, _P],
     # (src0, dst0, src0_ld, src1, dst1, src1_ld, rows, cols, dst_ld, stream)

@@ -9,14 +9,20 @@ left it to XLA outside any Pallas kernel:
 kernel TPU kernel it replaces       wrapper / plain version
 =====  ==========================  ==================================================
 K4     ``_enc_kernel``              ``bf16_encode`` / ``encode_bf16_plain``
-K5     ``_dec_axpy_kernel``         ``bf16_decode_axpy`` / ``decode_axpy_plain``
+K5     ``_dec_axpy_kernel``         ``bf16_fold_chunks`` / ``fold_chunks_plain`` (a
+                                    staged batch into accumulator rows, the folder's
+                                    flush) and ``bf16_decode_axpy`` /
+                                    ``decode_axpy_plain`` (flat buffers)
 =====  ==========================  ==================================================
 
-Both are bound by bytes on an H100 (K4 ~223 us, K5 ~371 us over the 124.4 M
-floats of gpt2_small); the source's header says more and PERF.md has the
-measured times. A wrapper given CPU tensors computes the plain version; given
-CUDA tensors it launches its kernel or raises — there is no fallback.
-``LAUNCHES`` counts kernel launches, one per wrapper call that reached the card.
+Both are bound by bytes on an H100 (K4 ~223 us over the 124.4 M floats of
+gpt2_small, K5 ~25 us per 16 MiB flush of 1 MiB chunks); the source's header
+says more and PERF.md has the measured times. K5 folds a whole staged batch
+in one launch, its chunk table passed by value in the kernel's parameter
+block (``fold_plan``: a batch whose table does not fit is split into
+launches of whole tiles). A wrapper given CPU tensors computes the plain
+version; given CUDA tensors it launches its kernel or raises — there is no
+fallback. ``LAUNCHES`` counts kernel launches.
 
 Encode semantics: round to nearest even on the bits, subnormals included; a
 NaN encodes as its sign | ``0x7fc0`` (the XLA convert's canonical quiet NaN).
@@ -53,10 +59,12 @@ The host codec (``native.f32_to_bf16``) agrees on every finite value, on
 
 from __future__ import annotations
 
+import array
+import itertools
 import threading
 import time
 import warnings
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,8 +76,12 @@ from distributedvolunteercomputing_tpu_torch.utils.torchenv import DeviceLike, r
 # many chunks, small enough that folding stays overlapped with arrival.
 FOLDER_FLUSH_BYTES = 16 << 20
 
-LAUNCHES: Dict[str, int] = {"bf16_encode": 0, "bf16_decode_axpy": 0}
+LAUNCHES: Dict[str, int] = {"bf16_encode": 0, "bf16_fold_chunks": 0}
 _launch_lock = threading.Lock()  # the codec launches from several worker threads
+# K5's chunk table per launch (csrc/bf16_codec.cu kFoldWords), int32 words:
+# 3 per tile, 3 per chunk and one more. Must equal the kernel's: the launcher
+# refuses anything larger.
+FOLD_WORDS = 2032
 
 
 def reset_launch_counts() -> None:
@@ -108,6 +120,88 @@ def widen_bf16(bits: torch.Tensor) -> torch.Tensor:
 def decode_axpy_plain(acc: torch.Tensor, bits: torch.Tensor, w: float) -> torch.Tensor:
     """acc + w * widen(bits) in f32, the multiply and the add each rounded."""
     return acc + torch.tensor(w, dtype=torch.float32) * widen_bf16(bits)
+
+
+def fold_chunks_plain(
+    acc: torch.Tensor, bits_rows: torch.Tensor, tiles: Sequence[int], weights: Sequence[float],
+    lens: Sequence[int], col0: int,
+) -> None:
+    """K5's batched function, in place on ``acc`` [n_tiles, shard]: chunk i
+    folds ``bits_rows[i, col0 : col0 + lens[i]]`` with weight ``weights[i]``
+    into ``acc[tiles[i], :lens[i]]``, one chunk after the other in staging
+    order (``decode_axpy_plain`` per chunk)."""
+    _check_fold(acc, bits_rows, tiles, weights, lens, col0)
+    for i, (t, w, n) in enumerate(zip(tiles, weights, lens)):
+        if n > 0:
+            dst = acc[int(t), :n]
+            dst.copy_(decode_axpy_plain(dst, bits_rows[i, col0 : col0 + n], float(w)))
+
+
+def _check_fold(acc, bits_rows, tiles, weights, lens, col0) -> None:
+    """K5's batch: acc f32 [n_tiles, shard] and bits_rows int16 [k, width],
+    rows contiguous, on one device; per chunk a tile in range and a length
+    within the shard and within its bits row from ``col0``."""
+    for name, x, dtype in (("acc", acc, torch.float32), ("bits_rows", bits_rows, torch.int16)):
+        if x.dtype != dtype or x.dim() != 2 or x.stride(1) != 1:
+            raise ValueError(f"fold_chunks: {name} must be {dtype} [rows, cols] with contiguous rows, "
+                             f"got {x.dtype} {tuple(x.shape)}")
+    if bits_rows.device != acc.device:
+        raise ValueError(f"fold_chunks: tensors on {bits_rows.device} and {acc.device}")
+    k, width = bits_rows.shape
+    n_tiles, shard = acc.shape
+    if not len(tiles) == len(weights) == len(lens) == k:
+        raise ValueError(f"fold_chunks: {k} bits rows, {len(tiles)} tiles, {len(weights)} weights, {len(lens)} lens")
+    if col0 < 0:
+        raise ValueError(f"fold_chunks: negative column offset {col0}")
+    if shard >= 1 << 31:
+        raise ValueError(f"fold_chunks: {shard} columns past the chunk table's int32 lengths")
+    for t, n in zip(tiles, lens):
+        if not 0 <= t < n_tiles:
+            raise ValueError(f"fold_chunks: tile {t} out of [0, {n_tiles})")
+        if not 0 <= n <= shard:
+            raise ValueError(f"fold_chunks: length {n} past the shard of {shard} columns")
+        if col0 + n > width:
+            raise ValueError(f"fold_chunks: length {n} from column {col0} past the bits row of {width}")
+
+
+def fold_plan(
+    tiles: Sequence[int], weights: Sequence[float], lens: Sequence[int]
+) -> List[Tuple[array.array, int, int]]:
+    """K5's chunk tables for one batch: (int32 words, tiles, chunks) per
+    launch. The batch's tiles in order of first arrival, each with its chunks
+    of non-zero length in staging order; a launch's table is row [U] | cols
+    [U] (its chunks' longest length) | ptr [U + 1] | chunk row [K] | weight
+    bits [K] | len [K] and holds at most ``FOLD_WORDS`` words. A batch whose
+    table does not fit is split into launches of whole tiles, so every
+    element still folds its chunks in staging order; a tile whose chunks
+    alone need more words raises."""
+    by_tile: Dict[int, List[int]] = {}
+    for i, (t, n) in enumerate(zip(tiles, lens)):
+        if n > 0:
+            by_tile.setdefault(int(t), []).append(i)
+    groups: List[List[Tuple[int, List[int]]]] = []
+    words = FOLD_WORDS
+    for t, idx in by_tile.items():
+        need = 3 + 3 * len(idx)
+        if 1 + need > FOLD_WORDS:
+            raise ValueError(f"fold_chunks: the {len(idx)} chunks of tile {t} need more than {FOLD_WORDS} table words")
+        if words + need > FOLD_WORDS:
+            groups.append([])
+            words = 1
+        groups[-1].append((t, idx))
+        words += need
+    wbits = np.asarray(weights, np.float32).view(np.int32).tolist()
+    tables = []
+    for group in groups:
+        chunks = [i for _, idx in group for i in idx]
+        table = [t for t, _ in group]
+        table += [max(lens[i] for i in idx) for _, idx in group]
+        table += itertools.accumulate([0] + [len(idx) for _, idx in group])
+        table += chunks
+        table += [wbits[i] for i in chunks]
+        table += [lens[i] for i in chunks]
+        tables.append((array.array("i", table), len(group), len(chunks)))
+    return tables
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +248,9 @@ def bf16_encode(x: torch.Tensor) -> torch.Tensor:
 def bf16_decode_axpy(
     acc: torch.Tensor, bits: torch.Tensor, w: float, out: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """K5. acc + w * widen(bits) in f32; ``out`` may be ``acc`` (in place)."""
+    """K5 on flat buffers. acc + w * widen(bits) in f32; ``out`` may be
+    ``acc`` (in place). On the card, one ``bf16_fold_chunks`` launch of one
+    tile and one chunk on ``out``, a copy of ``acc`` unless it is ``acc``."""
     if acc.device.type == "cpu":
         res = decode_axpy_plain(acc, bits, w)
         return res if out is None else out.copy_(res)
@@ -165,16 +261,38 @@ def bf16_decode_axpy(
     if out is None:
         out = torch.empty_like(acc)
     _check_flat("bf16_decode_axpy", out, torch.float32, acc.device)
-    if not acc.numel() == bits.numel() == out.numel():
-        raise ValueError(
-            f"bf16_decode_axpy: sizes differ: acc {acc.numel()}, bits {bits.numel()}, out {out.numel()}"
-        )
-    if acc.numel():
-        _launch(
-            "bf16_decode_axpy", acc.device,
-            bits.data_ptr(), acc.data_ptr(), out.data_ptr(), float(w), acc.numel(),
-        )
+    n = acc.numel()
+    if not n == bits.numel() == out.numel():
+        raise ValueError(f"bf16_decode_axpy: sizes differ: acc {n}, bits {bits.numel()}, out {out.numel()}")
+    if out.data_ptr() != acc.data_ptr():
+        out.copy_(acc)
+    if n:
+        bf16_fold_chunks(out.view(1, n), bits.view(1, n), [0], [w], [n], 0)
     return out
+
+
+def bf16_fold_chunks(
+    acc: torch.Tensor, bits_rows: torch.Tensor, tiles: Sequence[int], weights: Sequence[float],
+    lens: Sequence[int], col0: int,
+) -> int:
+    """K5 on a staged batch, in place: ``fold_chunks_plain``'s function in one
+    launch per ``fold_plan`` table (one for any batch whose table fits).
+    ``tiles``, ``weights`` and ``lens`` are host values. Returns the launches
+    made (0 on the CPU)."""
+    if acc.device.type == "cpu":
+        fold_chunks_plain(acc, bits_rows, tiles, weights, lens, col0)
+        return 0
+    if acc.device.type != "cuda":
+        raise ValueError(f"bf16_fold_chunks: expected CUDA or CPU tensors, got {acc.device}")
+    _check_fold(acc, bits_rows, tiles, weights, lens, col0)
+    plan = fold_plan(tiles, weights, lens)
+    for words, n_tiles, n_chunks in plan:
+        _launch(
+            "bf16_fold_chunks", acc.device,
+            bits_rows.data_ptr(), acc.data_ptr(), bits_rows.stride(0), acc.stride(0), col0,
+            words.buffer_info()[0], len(words), n_tiles, n_chunks,
+        )
+    return len(plan)
 
 
 # ---------------------------------------------------------------------------
@@ -298,13 +416,14 @@ class MeshCodec:
         per = -(-n // self.nd)
         return [(min(r * per, n), min((r + 1) * per, n)) for r in range(self.nd)]
 
-    def _map_cols(self, arr: np.ndarray, fn: Callable[[torch.Tensor], torch.Tensor]) -> np.ndarray:
-        """``fn`` on each rank's slice of ``arr``'s last axis, the results
-        joined on the host along the last axis (the reference's
+    def _map_cols(self, arr: np.ndarray, fn: Callable[..., torch.Tensor], *more: np.ndarray) -> np.ndarray:
+        """``fn`` on each rank's slice of ``arr``'s last axis (and of each
+        array of ``more``, of the same width, as further arguments), the
+        results joined on the host along the last axis (the reference's
         ``shard_map`` over the codec axis). Every rank's op is queued before
         the first result is fetched."""
         outs = [
-            fn(self._put(arr[..., lo:hi], r))
+            fn(self._put(arr[..., lo:hi], r), *(self._put(m[..., lo:hi], r) for m in more))
             for r, (lo, hi) in enumerate(self._splits(arr.shape[-1]))
             if hi > lo or r == 0
         ]
@@ -336,6 +455,25 @@ class MeshCodec:
             return res
 
         return self._run(dev, lambda: native.bf16_to_f32(bits, out=out))
+
+    def decode_axpy(self, acc: np.ndarray, bits: np.ndarray, w: float) -> np.ndarray:
+        """acc + w · widen(bits) in one fused pass (K5 on each rank's slice).
+        Returns the new accumulator; the host backend mutates ``acc`` in
+        place and returns it — callers must use the return value either way."""
+        from distributedvolunteercomputing_tpu_torch import native
+
+        acc = np.ascontiguousarray(acc, np.float32).ravel()
+        bits = np.ascontiguousarray(bits, np.uint16).ravel()
+        if acc.size != bits.size:
+            raise ValueError(f"decode_axpy size mismatch: {acc.size} vs {bits.size}")
+
+        def host() -> np.ndarray:
+            native.weighted_sum_inplace(acc, native.bf16_to_f32(bits), float(w))
+            return acc
+
+        return self._run(
+            lambda: self._map_cols(acc, lambda a, b: bf16_decode_axpy(a, b, float(w)), bits.view(np.int16)), host
+        )
 
     # -- window folds ------------------------------------------------------
 
@@ -463,10 +601,12 @@ class MeshMeanFolder:
     stage as raw bytes (no decode on the frame-reader thread) and fold in
     batches of ``FOLDER_FLUSH_BYTES``: one host-to-device copy of each rank's
     column slice of the batch, then, on the bf16 wire, one K5 launch per
-    chunk per rank, in staging order, on the accumulator row
-    ``acc_r[tile, :len]`` — the reference's ``a.at[t].add(w * widen(x))``
-    with duplicate tiles folded one after the other. The f32 wire and dense
-    feeds are ``acc.add_(x, alpha=w)``. Per-tile weight tallies stay in the
+    rank (``bf16_fold_chunks``; one per whole-tile group when the batch's
+    chunk table does not fit one launch) that folds every chunk into its
+    accumulator row ``acc_r[tile, :len]`` in staging order — the
+    reference's ``a.at[t].add(w * widen(x))`` with duplicate tiles folded
+    one after the other. The f32 wire and dense feeds are
+    ``acc.add_(x, alpha=w)``. Per-tile weight tallies stay in the
     aggregator. ``result()`` flushes the tail and gathers the shards to the
     host. A failed fold raises (from the flush worker, so the aggregator's
     finalize fails the round)."""
@@ -556,23 +696,27 @@ class MeshMeanFolder:
 
     def _flush_dev(self, batch: List[Tuple[int, float, bytes]]) -> None:
         """One copy of each rank's column slice of the batch to its device,
-        then one fold per chunk per rank in staging order."""
+        then the fold: on the bf16 wire one K5 launch per rank for the whole
+        batch, on the f32 wire one ``add_`` per chunk per rank, each in
+        staging order."""
         rows = self._raw_rows(batch)
         width = self.shard * self.esz
         dtype = torch.int16 if self.wire == "bf16" else torch.float32
         parts = [self.codec._put(rows[:, r * width : (r + 1) * width], r).view(dtype) for r in range(self.nd)]
+        tiles = [tile for tile, _, _ in batch]
+        weights = [w for _, w, _ in batch]
         with self._lock:
             for r, acc in enumerate(self._device_accs()):
                 lo = r * self.shard
-                for i, (tile, w, data) in enumerate(batch):
-                    n = min(len(data) // self.esz - lo, self.shard)
-                    if n <= 0:
-                        continue  # a short tail chunk ends before this rank's columns
-                    dst = acc[tile, :n]
-                    if self.wire == "bf16":
-                        bf16_decode_axpy(dst, parts[r][i, :n], w, out=dst)
-                    else:
-                        dst.add_(parts[r][i, :n], alpha=w)
+                # Each chunk's columns within this rank's slice: a short tail
+                # chunk may end before it.
+                lens = [min(max(len(data) // self.esz - lo, 0), self.shard) for _, _, data in batch]
+                if self.wire == "bf16":
+                    bf16_fold_chunks(acc, parts[r], tiles, weights, lens, 0)
+                else:
+                    for i, (tile, w, n) in enumerate(zip(tiles, weights, lens)):
+                        if n > 0:
+                            acc[tile, :n].add_(parts[r][i, :n], alpha=w)
 
     def flush(self) -> None:
         """Fold every staged chunk (worker-thread context)."""

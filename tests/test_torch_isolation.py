@@ -74,7 +74,7 @@ def test_import_loads_no_jax():
 
 SCRIPTS = [REPO / "chip_smoke.py"] + [REPO / "experiments" / f for f in (
     "torch_step_profile.py", "torch_ring_cards.py", "torch_dp_trace.py", "torch_attention_shapes.py",
-    "torch_dq_variants.py")]
+    "torch_dq_variants.py", "torch_codec_variants.py")]
 
 
 @pytest.mark.parametrize("path", SCRIPTS + [p for _, p in _port_modules()], ids=lambda p: p.name)
