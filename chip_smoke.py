@@ -90,8 +90,33 @@ Phases, each printing one JSON line:
             K6 = nd·(cards in use) per ring flush (one launch per card per
             ring step: nd on the one card) and K7 = nd·(nd - 1) per ring
             result (the codec's gauges), values within ``AVG_TOL``.
+10. lifecycle  the flagship volunteer's life from the port's entry scripts:
+            ``coordinator_torch.py`` starts; volunteer A runs as a process of
+            ``run_volunteer_torch.py`` (gpt2_small at full width, batch 8,
+            blocking bf16 sync rounds every ``LIFE_EVERY`` steps, a
+            checkpoint every ``LIFE_CKPT_EVERY``) and B in this process,
+            both pointed at the coordinator, until each has committed
+            ``LIFE_COMMITS`` rounds; A gets SIGTERM and must exit 0 with its
+            final ``step_N``; C starts in this process while B is the only
+            live provider: C's pull must return a step >= 2, C's trainer
+            must hold that step and, bit for bit on the card, the pulled
+            tree, which must be bit-equal to B's served snapshot through
+            the host bf16 codec (``native.f32_to_bf16``); A restarts from its
+            directory, must restore its final step and then pull a fresher
+            state from B or C; the three commit ``LIFE_COMMITS`` rounds
+            together. Then ``coord.status`` must hold all three (alive,
+            telemetry and watchdog summaries) and the coordinator's record
+            of their reports the device codec with K4 launches (and K5
+            launches at least the folder flushes of the volunteer, some K5
+            launch in all), B's and C's codec ops all on the card; finite
+            losses; K1-K3 launches 24 / 12 / 12 per step of B and C, K5 as
+            their folders' flushes. The line has rounds and round seconds
+            per volunteer, the pulls' seconds and bytes, the checkpoint's
+            host-copy ms, write and restore seconds, and the coordinator's
+            report count.
 
-Then one line listing every kernel, the card's name and power limit, and as the
+Then one line listing every kernel (``launches_lifecycle``: the counts of
+phase 10, in this process), the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure raises: the script
 exits non-zero and prints no ``ok`` line. It needs one card and no network.
 """
@@ -1045,7 +1070,7 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
         v0 = Volunteer(VolunteerConfig(peer_id="vol0", seed=1, metrics_path=str(paths[0]), **base))
         await v0.start()
         v1 = Volunteer(VolunteerConfig(peer_id="vol1", seed=2, metrics_path=str(paths[1]),
-                                       bootstrap="%s:%d" % v0.transport.addr, **base))
+                                       coordinator="%s:%d" % v0.transport.addr, **base))
         await v1.start()
         start_s = time.perf_counter() - t0
         recording(v0, 0), recording(v1, 1)
@@ -1165,6 +1190,375 @@ def check_averaged_values(records, failures) -> dict:
         return out
     failures.append("no streamed round with both results recorded")
     return {}
+
+
+# ---------------------------------------------------------------------------
+# lifecycle: coordinator, checkpoints, preemption, state sync on join
+# ---------------------------------------------------------------------------
+
+LIFE_EVERY = 2  # averaging cadence (steps)
+LIFE_CKPT_EVERY = 4  # A's checkpoint cadence (steps)
+LIFE_COMMITS = 2  # rounds A and B commit before A's preemption; then rounds the three commit together
+LIFE_WAIT_S = 300.0  # cap on each wait of the phase
+LIFE_CKPT_KEEP = "2"  # A's snapshots kept (DVC_CKPT_KEEP): ~1.49 GB each at full width
+
+
+def read_jsonl(path) -> list:
+    """The records of a JSONL file another process may be appending to."""
+    out = []
+    if not Path(path).exists():
+        return out
+    for line in Path(path).read_text().splitlines():
+        try:
+            out.append(json.loads(line))
+        except json.JSONDecodeError:
+            pass  # a line still being written
+    return out
+
+
+def committed_rounds(records) -> int:
+    return sum(1 for r in records if r.get("event") == "avg_round" and r.get("ok"))
+
+
+class LifeRecorder:
+    """Wraps an in-process volunteer's averager callback and its group
+    formation: each committed round with the size of its group and its
+    seconds. A round whose group holds a member that never contributes (a
+    departed peer whose rendezvous record is still live) commits only at
+    the gather deadline, without it; a round of ``size`` that commits
+    sooner had all ``size`` contributions."""
+
+    def __init__(self, vol):
+        self.rounds = []  # (group size, step, seconds) per committed round
+        self.deadline_s = vol.cfg.round_deadline_s or vol.cfg.gather_timeout
+        self._size = 0
+        inner, form_group = vol._averager_callback, vol.averager._form_group
+
+        async def counted_form_group(round_key):
+            group = await form_group(round_key)
+            self._size = len(group.members) if group is not None else 0
+            return group
+
+        def cb(params, step):
+            t0 = time.perf_counter()
+            result = inner(params, step)
+            if result is not None:
+                self.rounds.append((self._size, step, time.perf_counter() - t0))
+            return result
+
+        vol.averager._form_group = counted_form_group
+        vol.trainer.averager = cb
+
+    def together(self, size: int, since: int = 0) -> int:
+        """Rounds since the ``since``-th that all ``size`` members fed."""
+        return sum(1 for n, _, sec in self.rounds[since:] if n == size and sec < self.deadline_s)
+
+
+def lifecycle_phase() -> dict:
+    """The flagship volunteer's whole life on the card, from the port's own
+    entry scripts (see the module doc)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from distributedvolunteercomputing_tpu_torch import native
+    from distributedvolunteercomputing_tpu_torch.ops import flash_attention as fa
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+    from distributedvolunteercomputing_tpu_torch.swarm import volunteer as vol_mod
+    from distributedvolunteercomputing_tpu_torch.swarm.state_sync import StateSyncService
+    from distributedvolunteercomputing_tpu_torch.swarm.transport import Transport
+    from distributedvolunteercomputing_tpu_torch.training.checkpoint import latest_step
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer
+
+    if not native.ensure_built():
+        raise RuntimeError("the host codec's C++ core did not build")
+    (HERE / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="lifecycle_", dir=HERE / "build"))
+    torch.cuda.empty_cache()  # A's process shares the card with this one
+    ckpt_a = tmp / "ckpt_a"
+    paths = {k: tmp / f"{k}.jsonl" for k in ("A1", "A2", "B", "C", "coord")}
+    procs = {}
+    failures = []
+
+    class RecordingSync(StateSyncService):
+        """The state-sync service of the in-process volunteers, keeping what
+        its pull returned."""
+
+        pulled = None
+
+        async def pull(self, *a, **kw):
+            self.pulled = await super().pull(*a, **kw)
+            return self.pulled
+
+    async def spawn(name, *argv, env=None):
+        log_path = tmp / f"{name}.log"
+        procs[name] = (await asyncio.create_subprocess_exec(
+            sys.executable, *map(str, argv), cwd=str(HERE), env=env,
+            stdout=asyncio.subprocess.PIPE if name == "coord" else open(tmp / f"{name}.out", "w"),
+            stderr=open(log_path, "w"),
+        ), log_path)
+        return procs[name][0]
+
+    def log_tail(name, n=3000) -> str:
+        p = procs[name][1] if name in procs else None
+        return p.read_text()[-n:] if p is not None and p.exists() else ""
+
+    async def wait_for(what, cond, alive=()):
+        deadline = time.monotonic() + LIFE_WAIT_S
+        while not cond():
+            for name in alive:
+                if procs[name][0].returncode is not None:
+                    raise AssertionError(f"{name} exited ({procs[name][0].returncode}) waiting for {what}: "
+                                         f"{log_tail(name)}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"lifecycle: timed out waiting for {what}")
+            await asyncio.sleep(0.5)
+
+    async def stop_proc(name, timeout=180.0) -> int:
+        proc = procs[name][0]
+        if proc.returncode is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                await asyncio.wait_for(proc.wait(), timeout)
+            except asyncio.TimeoutError:
+                proc.kill()
+                await proc.wait()
+                raise AssertionError(f"{name} did not exit within {timeout}s of SIGTERM")
+        return proc.returncode
+
+    def volunteer_argv(metrics):
+        return [HERE / "run_volunteer_torch.py", "--model", "gpt2_small", "--batch-size", "8",
+                "--averaging", "sync", "--wire", "bf16", "--average-every", LIFE_EVERY, "--no-overlap",
+                "--coordinator", addr, "--checkpoint-dir", ckpt_a, "--checkpoint-every", LIFE_CKPT_EVERY,
+                "--metrics", metrics, "--peer-id", "volA", "--seed", "1", "--steps", 100000]
+
+    def in_process(peer, seed):
+        return vol_mod.Volunteer(vol_mod.VolunteerConfig(
+            peer_id=peer, seed=seed, coordinator=addr, model="gpt2_small", batch_size=8, averaging="sync",
+            wire="bf16", average_every=LIFE_EVERY, overlap=False, steps=100000,
+            metrics_path=str(paths[peer[-1]]),
+        ))
+
+    async def coord_view(client):
+        status, _ = await client.call(addr_t, "coord.status", {}, timeout=10.0)
+        latest = {}
+        for rec in read_jsonl(paths["coord"]):
+            latest[rec.get("peer")] = rec
+        return status, latest
+
+    def report_checks(status, latest) -> list:
+        bad = []
+        peers = ("volA", "volB", "volC")
+        per_peer = (status.get("telemetry") or {}).get("per_peer") or {}
+        for p in peers:
+            rep = latest.get(p) or {}
+            codec = rep.get("mesh_codec") or {}
+            flushes = (rep.get("aggregation") or {}).get("folder_flushes", 0)
+            k = codec.get("launches") or {}
+            if p not in status["alive"] or p not in per_peer:
+                bad.append(f"{p} not in coord.status")
+            if codec.get("backend") != "device" or k.get("bf16_encode", 0) < 1:
+                bad.append(f"{p}: codec {codec}")
+            if p in ("volB", "volC") and codec.get("ops_host", 1) != 0:
+                bad.append(f"{p}: codec ops off the card {codec}")
+            if k.get("bf16_fold_chunks", 0) < flushes:
+                bad.append(f"{p}: K5 launches {k} < its folder's {flushes} flushes")
+            if not isinstance(rep.get("watchdog"), dict):
+                bad.append(f"{p}: no watchdog summary in its report")
+        if (status.get("alerts") or {}).get("reporting", 0) < 3:
+            bad.append(f"watchdog summaries reporting: {status.get('alerts')}")
+        if not any((latest.get(p, {}).get("mesh_codec") or {}).get("launches", {}).get("bf16_fold_chunks")
+                   for p in peers):
+            bad.append("no report shows a K5 launch")
+        return bad
+
+    async def main():
+        nonlocal addr, addr_t
+        env_a = {**os.environ, "DVC_CKPT_KEEP": LIFE_CKPT_KEEP}
+        coord = await spawn("coord", HERE / "coordinator_torch.py", "--port", "0", "--metrics", paths["coord"])
+        line = await asyncio.wait_for(coord.stdout.readline(), 120)
+        if not line.startswith(b"COORDINATOR_READY"):
+            raise AssertionError(f"coordinator: {line!r} {log_tail('coord')}")
+        addr = line.split()[1].decode()
+        host, port = addr.rsplit(":", 1)
+        addr_t = (host, int(port))
+        vol_mod.StateSyncService = RecordingSync
+        vols, tasks = {}, {}
+        client = Transport()
+        await client.start()
+        t_phase = time.perf_counter()
+        try:
+            # 1-2. A (entry script, a process of its own) and B (in this
+            # process) train together until each has committed rounds.
+            await spawn("A1", *volunteer_argv(paths["A1"]), env=env_a)
+            vols["B"] = in_process("volB", 2)
+            await vols["B"].start()
+            rec_b = LifeRecorder(vols["B"])
+            torch.cuda.synchronize()
+            reset_all_launch_counts()
+            tasks["B"] = asyncio.create_task(vols["B"].train())
+            await wait_for("A and B to commit rounds", lambda: committed_rounds(read_jsonl(paths["A1"])) >= LIFE_COMMITS
+                           and len(rec_b.rounds) >= LIFE_COMMITS, alive=("A1",))
+            # 3. Preempt A: it exits 0 after its final checkpoint.
+            rc = await stop_proc("A1")
+            a1 = read_jsonl(paths["A1"])
+            done = [ln for ln in (tmp / "A1.out").read_text().splitlines() if ln.startswith("VOLUNTEER_DONE ")]
+            a1_steps = json.loads(done[-1].split(" ", 1)[1])["steps"] if done else None
+            final_step = latest_step(str(ckpt_a))
+            if rc != 0 or final_step is None or final_step != a1_steps:
+                raise AssertionError(f"A on SIGTERM: rc {rc}, final step_N {final_step}, its steps {a1_steps}: "
+                                     f"{log_tail('A1')}")
+            # 4. C joins while B is the only live provider.
+            served = {}
+            inner = vols["B"].state_sync._provider
+
+            def recording_provider():
+                step, tree = inner()
+                served[step] = tree
+                return step, tree
+
+            vols["B"].state_sync.set_provider(recording_provider)
+            vols["C"] = in_process("volC", 3)
+            await vols["C"].start()
+            pulled = vols["C"].state_sync.pulled
+            if pulled is None:
+                raise AssertionError("C's pull returned None while B provides state")
+            c_step, c_tree = pulled
+            got = flatten_to_buffer(vols["C"].trainer.state.params)[0]
+            want = flatten_to_buffer(c_tree)[0]
+            wire = native.bf16_to_f32(native.f32_to_bf16(flatten_to_buffer(served[c_step])[0]))
+            late_join = {
+                "pulled_step": c_step, "trainer_step": vols["C"].trainer.state.step,
+                "params_bit_equal_pulled": got.view(np.uint32).tobytes() == want.view(np.uint32).tobytes(),
+                "pulled_bit_equal_served_bf16": want.view(np.uint32).tobytes() == wire.view(np.uint32).tobytes(),
+            }
+            if not (c_step >= 2 and late_join["trainer_step"] == c_step and late_join["params_bit_equal_pulled"]
+                    and late_join["pulled_bit_equal_served_bf16"]):
+                raise AssertionError(f"late join: {late_join}")
+            rec_c = LifeRecorder(vols["C"])
+            tasks["C"] = asyncio.create_task(vols["C"].train())
+            # 5. A restarts from its checkpoint once B is ahead of it, and
+            # catches up by state sync.
+            await wait_for("B to step past A's checkpoint",
+                           lambda: vols["B"].trainer.state.step > final_step + LIFE_EVERY)
+            since = (len(rec_b.rounds), len(rec_c.rounds))
+            await spawn("A2", *volunteer_argv(paths["A2"]), env=env_a)
+            await wait_for("A's restore and pull", lambda: any(
+                r.get("event") == "state_pull" for r in read_jsonl(paths["A2"])), alive=("A2",))
+            a2 = read_jsonl(paths["A2"])
+            restored = [r for r in a2 if r.get("event") == "ckpt_restored"]
+            a_pull = [r for r in a2 if r.get("event") == "state_pull"][0]
+            if not restored or restored[0]["step"] != final_step:
+                raise AssertionError(f"A's restore {restored} != its final step_{final_step}")
+            if not (a_pull["pulled"] and a_pull["step"] > final_step):
+                raise AssertionError(f"A's catch-up pull {a_pull} after its restore at step {final_step}")
+            await wait_for("A, B and C to commit rounds together", lambda: min(
+                rec_b.together(3, since[0]), rec_c.together(3, since[1])) >= LIFE_COMMITS
+                and committed_rounds(read_jsonl(paths["A2"])) >= LIFE_COMMITS, alive=("A2",))
+            # 6. The coordinator's view: the reports of all three.
+            deadline = time.monotonic() + 60.0
+            while True:
+                status, latest = await coord_view(client)
+                bad = report_checks(status, latest)
+                if not bad or time.monotonic() > deadline:
+                    break
+                await asyncio.sleep(1.0)
+            failures.extend(bad)
+            run_s = time.perf_counter() - t_phase
+            # All three stop together, as far as they can: a round whose
+            # peer stopped first waits out its gather deadline.
+            for v in vols.values():
+                v._stop.set()
+            procs["A2"][0].send_signal(signal.SIGTERM)
+            summaries = dict(zip(tasks, await asyncio.gather(*tasks.values())))
+            torch.cuda.synchronize()
+            launches = {**dict(mc.LAUNCHES), **dict(fa.LAUNCHES)}
+            rc2 = await stop_proc("A2")
+            if rc2 != 0:
+                failures.append(f"A's second life exited {rc2}: {log_tail('A2')}")
+            return dict(status=status, latest=latest, summaries=summaries, launches=launches, run_s=run_s,
+                        late_join=late_join, final_step=final_step, restored=restored[0], a_pull=a_pull,
+                        a1=a1, rec={"B": rec_b.rounds, "C": rec_c.rounds},
+                        together={"B": rec_b.together(3, since[0]), "C": rec_c.together(3, since[1])})
+        finally:
+            vol_mod.StateSyncService = StateSyncService
+            for v in vols.values():
+                v._stop.set()
+            for t in tasks.values():
+                try:
+                    await asyncio.wait_for(t, 120)
+                except BaseException:  # noqa: BLE001 — teardown; the failure already raised
+                    pass
+            await asyncio.gather(*(v.stop() for v in vols.values()), return_exceptions=True)
+            await client.close()
+            for name in procs:
+                try:
+                    code = await stop_proc(name, timeout=60.0)
+                    if name == "coord" and code != 0:
+                        failures.append(f"coordinator exited {code}: {log_tail('coord')}")
+                except AssertionError as e:
+                    failures.append(str(e))
+
+    addr, addr_t = "", None
+    try:
+        res = asyncio.run(main())
+        recs = {k: read_jsonl(paths[k]) for k in ("A1", "A2", "B", "C")}
+        coord_reports = read_jsonl(paths["coord"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def rounds_s(records):
+        return [r["avg_s"] for r in records if r.get("event") == "avg_round" and r.get("ok")]
+
+    losses = {k: [r["loss"] for r in v if "loss" in r] for k, v in recs.items()}
+    ran = {k: len(losses[k]) for k in ("B", "C")}
+    expect_flash = {"flash_fwd": 24 * sum(ran.values()), "flash_dq": 12 * sum(ran.values()),
+                    "flash_dkv": 12 * sum(ran.values())}
+    agg = {k: s.get("aggregation", {}) for k, s in res["summaries"].items()}
+    k5_expected = sum(a.get("folder_flushes", 0) for a in agg.values())
+    pulls = {"C": [r for r in recs["C"] if r.get("event") == "state_pull"], "A": [res["a_pull"]]}
+    status = res["status"]
+    row = {
+        "phase": "lifecycle", "model": "gpt2_small", "batch_size": 8, "wire": "bf16", "overlap": False,
+        "average_every": LIFE_EVERY, "checkpoint_every": LIFE_CKPT_EVERY, "commits": LIFE_COMMITS,
+        "run_s": res["run_s"],
+        "rounds_ok": {k: committed_rounds(v) for k, v in recs.items()},
+        "round_s": {k: rounds_s(v) for k, v in recs.items()},
+        "rounds_together_after_A_restart": res["together"],
+        "rounds_in_process": res["rec"],  # (group size, step, seconds) per committed round
+        "steps_run": {k: len(v) for k, v in losses.items()},
+        "state_pull": {k: [{f: p[f] for f in ("step", "from_step", "pulled", "s", "bytes")} for p in v]
+                       for k, v in pulls.items()},
+        "late_join": res["late_join"],
+        "checkpoint": {
+            "host_copy_ms": [r["ms"] for r in res["a1"] if r.get("event") == "ckpt_host_copy"],
+            "write_s": [r["write_s"] for r in res["a1"] if r.get("event") == "ckpt_saved"],
+            "final_step": res["final_step"], "restore_s": res["restored"]["restore_s"],
+            "restored_step": res["restored"]["step"],
+        },
+        "coordinator": {
+            "report_lines": len(coord_reports), "reports": status["control_plane"].get("reports"),
+            "exchanges": status["control_plane"].get("exchanges"), "alive": sorted(status["alive"]),
+            "watchdog_reporting": (status.get("alerts") or {}).get("reporting"),
+            "codec": {p: (res["latest"].get(p) or {}).get("mesh_codec") for p in ("volA", "volB", "volC")},
+        },
+        "launches": res["launches"], "launches_expected": {**expect_flash, "bf16_fold_chunks": k5_expected},
+    }
+    emit(row)
+    if any(not v or not all(math.isfinite(x) for x in v) for v in losses.values()):
+        failures.append(f"missing or non-finite losses: { {k: len(v) for k, v in losses.items()} }")
+    if {k: res["launches"][k] for k in expect_flash} != expect_flash:
+        failures.append(f"K1-K3 launches {res['launches']} != {expect_flash} for B and C's {ran} steps")
+    if res["launches"]["bf16_encode"] < 1 or res["launches"]["bf16_fold_chunks"] != k5_expected:
+        failures.append(f"K4/K5 launches {res['launches']}: K5 != the folders' {k5_expected} flushes")
+    if not pulls["C"] or not pulls["C"][0]["pulled"]:
+        failures.append(f"C's pull: {pulls['C']}")
+    if failures:
+        raise AssertionError(f"lifecycle phase: {failures}")
+    return res["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -1653,6 +2047,7 @@ def main() -> int:
     devices, _ = ring_ranks(2)
     ring_launches = averaging_phase(mesh=_mesh(devices), collective="ring", phase="ring_averaging")
     launches.update({k: ring_launches[k] for k in RING_KERNELS})
+    life_launches = lifecycle_phase()
 
     kernels = []
     for kname, (replaces, kid) in KERNELS.items():
@@ -1660,7 +2055,8 @@ def main() -> int:
         lib = "sdpa_fwd" if kname == "flash_fwd" else "sdpa_fwd_bwd"
         kernels.append({
             "name": kname, "id": kid, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
+            "launches": launches[kname], "launches_lifecycle": life_launches[kname],
+            "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
             "ms_method": DEVICE_MS_METHOD, "ms_qkv_view": times["qkv"][kname]["ms"],
             "plain_ms": t[kname]["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": t[lib]["ms"], "library_ms_qkv_view": times["qkv"][lib]["ms"],
@@ -1671,6 +2067,7 @@ def main() -> int:
     kernels.append({
         "name": "bf16_encode", "id": "K4", "route": "cuda", "source": CODEC_SOURCE,
         "replaces": CODEC_KERNELS["bf16_encode"][0], "launches": launches["bf16_encode"],
+        "launches_lifecycle": life_launches["bf16_encode"],
         "max_abs_err": codec["encode_max_abs_err"], "n": k4["n"], "ms": k4["ms"], "ms_method": k4["ms_method"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"], "library_call": k4["library_call"],
@@ -1678,6 +2075,7 @@ def main() -> int:
     kernels.append({
         "name": "bf16_fold_chunks", "id": "K5", "route": "cuda", "source": CODEC_SOURCE,
         "replaces": CODEC_KERNELS["bf16_fold_chunks"][0], "launches": launches["bf16_fold_chunks"],
+        "launches_lifecycle": life_launches["bf16_fold_chunks"],
         "max_abs_err": max(k5["max_abs_err"], codec["fold_max_abs_err"]),
         "per": f"staged flush of {k5['chunks']} chunks of 1 MiB ({k5['distinct_tiles']} tiles)",
         "ms": k5["device_ms"], "ms_method": "profiler device time of bf16_fold_kernel per flush",

@@ -67,6 +67,10 @@ _REGISTRY: Dict[str, Callable[..., ModelBundle]] = {
 }
 
 
+def ported_models() -> list:
+    return sorted(_REGISTRY)
+
+
 def get_model(name: str, **overrides: Any) -> ModelBundle:
     if name in _NOT_PORTED:
         raise KeyError(f"model {name!r} is not ported to PyTorch yet; ported: {sorted(_REGISTRY)}")

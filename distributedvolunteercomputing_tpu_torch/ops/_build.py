@@ -4,7 +4,9 @@ The sources under ``csrc/`` are compiled in parallel (one nvcc each) and
 linked into one shared library with a plain C interface, in
 ``build/torch_kernels/<hash of the sources>/`` beside the package, so a
 changed source never loads a stale library; the compiler's report (ptxas
-registers and spills per kernel) is kept beside it as ``.log``. nvcc is found on
+registers and spills per kernel) is kept beside it as ``.log``. A file lock
+in that directory lets one process build while the others wait for its
+library (a volunteer started beside another on one machine). nvcc is found on
 ``PATH`` or under ``$CUDA_HOME`` (default ``/usr/local/cuda``). A missing
 nvcc or a failed build raises with the compiler's output; nothing falls back.
 """
@@ -12,6 +14,7 @@ nvcc or a failed build raises with the compiler's output; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -117,9 +120,13 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             path = library_path()
-            if not path.exists():
-                _compile(path)
-            else:  # built earlier: its compiler report was kept beside it
+            path.parent.mkdir(parents=True, exist_ok=True)
+            with open(path.parent / ".build.lock", "w") as lock_file:
+                fcntl.flock(lock_file, fcntl.LOCK_EX)  # released when the file closes
+                built_here = not path.exists()
+                if built_here:
+                    _compile(path)
+            if not built_here:  # built earlier: its compiler report was kept beside it
                 build_info.setdefault("seconds", 0.0)
                 log = path.with_suffix(".log")
                 build_info.setdefault("log", log.read_text() if log.exists() else "")

@@ -374,6 +374,8 @@ class MeshCodec:
             "device_s": round(self.device_s, 6),
             "ring_flushes": int(self.ring_flushes),
             "ring_results": int(self.ring_results),
+            # K4/K5 launches of this process (``LAUNCHES``), as a report shows them.
+            "launches": dict(LAUNCHES),
         }
 
     # -- device ops --------------------------------------------------------

@@ -222,7 +222,7 @@ class AveragerBase:
     ):
         _check_ported(
             wire, resilience=resilience, failure_detector=failure_detector,
-            control_plane=control_plane, controller=controller, shard_manager=shard_manager,
+            controller=controller, shard_manager=shard_manager,
         )
         if wire not in ("f32", "bf16", "q8", "topk", "powersgd", "sign"):
             raise ValueError(f"unknown wire dtype {wire!r}")
@@ -3868,9 +3868,10 @@ _NOT_PORTED_MODES = ("gossip", "butterfly", "byzantine")
 
 def _check_ported(wire: str, **collaborators: Any) -> None:
     """Refuse, at construction, what the port does not carry yet: wires
-    other than f32/bf16 and the resilience, failure-detector, control-plane,
-    controller and shard-manager collaborators (their modules are not
-    ported). Accepting one and ignoring it would change the round silently."""
+    other than f32/bf16 and the resilience, failure-detector, controller and
+    shard-manager collaborators (their modules or their volunteer wiring are
+    not ported). Accepting one and ignoring it would change the round
+    silently."""
     if wire not in ("f32", "bf16"):
         raise NotImplementedError(f"wire {wire!r} is not ported yet; ported: f32, bf16")
     attached = sorted(name for name, obj in collaborators.items() if obj is not None)

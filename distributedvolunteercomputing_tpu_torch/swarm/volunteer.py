@@ -2,22 +2,32 @@
 (ported from ``distributedvolunteercomputing_tpu/swarm/volunteer.py``).
 
 Threading model, as in the reference: the asyncio loop (transport, DHT,
-membership heartbeats, averaging RPC handlers) owns the calling thread; the
-blocking train loop runs in a worker thread and bridges into the loop once
-per averaging round through ``run_coroutine_threadsafe``.
+membership heartbeats, averaging RPC handlers, the report loop) owns the
+calling thread; the blocking train loop runs in a worker thread and bridges
+into the loop once per averaging round through ``run_coroutine_threadsafe``.
+Readers on the loop thread (the state-sync provider, the report) touch only
+the trainer's host snapshot and plain ints, never its tensors: the step
+updates them in place. On SIGTERM (a preemption notice) the volunteer stops
+after its current step, saves a final checkpoint, leaves and exits.
+
+``start`` follows the reference's order: transport, the local metrics
+endpoint (``metrics_port``), the DHT joined through the coordinator(s), the
+control-plane client (and a replica when ``host_replica``), membership with
+the report beat, the averager, then the codec on this volunteer's device or
+its mesh's ranks (``mesh_codec.configure``: the bf16 encode and the
+leader's fold run as CUDA kernels on the card; with two or more ranks and
+``mesh_collective`` "ring" or "auto" the fold is the ring, K6/K7), the
+trainer with the checkpoint cadence, the restore of the newest checkpoint,
+the state-sync pull from the freshest peer ahead and the announce, the
+watchdog's probes, and the report loop.
 
 Ported so far: ``averaging`` "none" or "sync" on the f32 or bf16 wire, the
-step cadence, blocking or overlapped rounds, and a local data-parallel mesh.
-The volunteer builds its swarm services, then its mesh (``mesh``: the
-reference's "dp=N" spec over the visible cards, or a prebuilt port ``Mesh``,
-which may put several ranks on one card), then selects the codec on its
-device or its mesh's ranks (``mesh_codec.configure``: the bf16 encode and the
-leader's fold run as CUDA kernels on the card; with two or more ranks and
-``mesh_collective`` "ring" or "auto" the fold is the ring, K6/K7), then the
-trainer, data-parallel over the mesh. The coordinator, state sync,
-checkpoints, the resilience layer and controller, chaos hooks, group
-schedules and sharding come with later slices; ``VolunteerConfig`` does not
-accept them yet.
+step cadence, blocking or overlapped rounds, a local data-parallel mesh,
+the coordinator and control plane, checkpoints and state sync. The
+resilience layer and controller, the wall-clock cadence, gradient
+averaging, the other wires and averaging modes, chaos hooks, group
+schedules and sharding come with later slices; ``VolunteerConfig`` raises
+``NotImplementedError`` when one of them is set away from its default.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import asyncio
 import dataclasses
 import signal
 import threading
+import time
 import uuid
 from typing import Any, Dict, Optional, Union
 
@@ -35,71 +46,196 @@ from distributedvolunteercomputing_tpu_torch.parallel.mesh import Mesh, make_mes
 from distributedvolunteercomputing_tpu_torch.swarm.averager import make_averager
 from distributedvolunteercomputing_tpu_torch.swarm.dht import DHTNode
 from distributedvolunteercomputing_tpu_torch.swarm.membership import SwarmMembership
+from distributedvolunteercomputing_tpu_torch.swarm.state_sync import StateSyncService
 from distributedvolunteercomputing_tpu_torch.swarm.telemetry import Telemetry
-from distributedvolunteercomputing_tpu_torch.swarm.transport import Transport
+from distributedvolunteercomputing_tpu_torch.swarm.transport import Transport, read_secret
 from distributedvolunteercomputing_tpu_torch.training.trainer import Trainer
 from distributedvolunteercomputing_tpu_torch.utils.logging import errstr, get_logger
 from distributedvolunteercomputing_tpu_torch.utils.torchenv import DeviceLike
 
 log = get_logger(__name__)
 
-HEARTBEAT_TTL_S = 15.0  # the reference's default membership record TTL
+PORTED = (
+    "averaging none|sync, wire f32|bf16, the step cadence, overlap, a dp mesh, "
+    "the coordinator and control plane, checkpoints, state sync, telemetry, "
+    "health probe and watchdog"
+)
+
+# The reference's options that later slices carry: field -> (default, what).
+# Set away from its default, each raises NotImplementedError.
+LATER_SLICES: Dict[str, tuple] = {
+    "average_what": ("params", "gradient averaging"),
+    "topk_frac": (0.01, "the topk wire"),
+    "topk_warmup_rounds": (0, "the topk wire"),
+    "powersgd_rank": (4, "the powersgd wire"),
+    "allow_unrobust_topk": (False, "the topk wire"),
+    "group_size": (0, "group schedules"),
+    "group_rotation_s": (0.0, "group schedules"),
+    "zone": ("", "zones"),
+    "cross_zone_every_k": (0, "zones"),
+    "zone_shards": (0, "zone sharding"),
+    "steps_per_call": (1, "multi-step calls"),
+    "data_path": (None, ".npz data"),
+    "eval_every": (0, "evaluation"),
+    "eval_batches": (4, "evaluation"),
+    "method": ("mean", "robust estimators (byzantine averaging)"),
+    "method_kw": (None, "robust estimators (byzantine averaging)"),
+    "resilience": (False, "the resilience layer"),
+    "phi_threshold": (8.0, "the resilience layer"),
+    "adapt": (True, "the controller (the resilience layer)"),
+    "outer_optimizer": ("none", "the outer optimizer"),
+    "outer_lr": (0.7, "the outer optimizer"),
+    "outer_momentum": (0.9, "the outer optimizer"),
+    "fsdp": (False, "fsdp"),
+    "seq_sharded": (False, "sequence parallelism"),
+    "sp_impl": ("ring", "sequence parallelism"),
+}
+
+# The reference's codec backends -> the port's (the card's kernels are its mesh).
+_CODEC_BACKENDS = {"auto": "auto", "mesh": "device", "host": "host"}
 
 
 @dataclasses.dataclass
 class VolunteerConfig:
     model: str = "gpt2_small"
     model_overrides: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # "host:port[,host:port...]" — several = several DHT bootstrap nodes
+    # (join works while ANY is alive); None = run standalone.
+    coordinator: Optional[str] = None
+    host: str = "127.0.0.1"
+    port: int = 0
+    advertise_host: Optional[str] = None  # dialable address when binding 0.0.0.0
+    peer_id: str = ""
+    averaging: str = "none"  # none | sync
+    average_every: int = 10
+    # Wall-clock cadence: None = AUTO, which resolves to the step cadence
+    # (0) for every ported mode; a positive value is a later slice.
+    average_interval_s: Optional[float] = None
+    average_what: str = "params"
+    # Overlap rounds with local steps (the reference's default, on).
+    overlap: bool = True
+    max_staleness: int = 0  # steps; 0 = unbounded
+    wire: str = "f32"  # f32 | bf16
+    topk_frac: float = 0.01
+    topk_warmup_rounds: int = 0
+    powersgd_rank: int = 4
+    min_group: int = 2
+    max_group: int = 16
+    group_size: int = 0
+    group_rotation_s: float = 0.0
+    zone: str = ""
+    cross_zone_every_k: int = 0
+    zone_shards: int = 0
     batch_size: int = 32
+    steps_per_call: int = 1
+    accum_steps: int = 1  # gradient-accumulation microbatches inside the step
+    data_path: Optional[str] = None
     optimizer: str = "adam"
     lr: float = 1e-3
     seed: int = 0  # per-volunteer: data order + step rng
     init_seed: int = 0  # task-constant: shared initial params
+    param_dtype: Optional[str] = None  # e.g. "bfloat16" for bf16 training
     steps: int = 1000
-    averaging: str = "none"  # none | sync
-    wire: str = "f32"  # f32 | bf16
-    average_every: int = 10
-    # Overlap rounds with local steps (the reference's default, on).
-    overlap: bool = True
-    max_staleness: int = 0  # steps; 0 = unbounded
+    target_loss: Optional[float] = None
+    target_mode: str = "stop"  # stop | record
+    eval_every: int = 0
+    eval_batches: int = 4
+    metrics_path: Optional[str] = None
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 200
+    heartbeat_ttl: float = 15.0
     join_timeout: float = 10.0
     gather_timeout: float = 20.0
-    host: str = "127.0.0.1"
-    port: int = 0
-    # "host:port[,host:port...]" DHT bootstrap nodes (the reference's
-    # --coordinator addresses); None = the first node of a swarm.
-    bootstrap: Optional[str] = None
-    peer_id: str = ""
-    # The card unless "cpu" is asked for; raises when there is no card.
-    device: DeviceLike = None
-    metrics_path: Optional[str] = None
+    method: str = "mean"
+    method_kw: Optional[Dict[str, Any]] = None
+    # Adaptive round deadlines (EWMA of successful rounds; see AveragerBase).
+    adaptive_timeout: bool = False
+    resilience: bool = False
+    phi_threshold: float = 8.0
+    adapt: bool = True
+    # Static wall-clock budget per averaging round, seconds (0 = the gather
+    # timeout): the leader stamps clock()+budget into the round begin.
+    round_deadline_s: float = 0.0
+    outer_optimizer: str = "none"
+    outer_lr: float = 0.7
+    outer_momentum: float = 0.9
     # Local mesh: the reference's "dp=N" spec over the first N visible cards
     # (dp only), or a port ``Mesh`` (whose ranks may share a card); "" = one
     # device. The swarm still sees one volunteer either way.
     mesh: Union[str, Mesh] = ""
+    # The swarm data path's backend: "auto" (the card's kernels on a card,
+    # host numpy on the CPU), "mesh" (the card's kernels), "host".
+    mesh_codec: str = "auto"
     # The leader's bf16 mean fold over the mesh: "ring" (K6/K7), "off" (the
     # staged per-rank fold), "auto" = ring with two or more CUDA ranks.
     mesh_collective: str = "auto"
+    fsdp: bool = False
+    seq_sharded: bool = False
+    sp_impl: str = "ring"
+    # Host a control-plane replica on this volunteer: it serves coord.status
+    # and batched heartbeat traffic and stands for election, so the
+    # coordinator's death is a non-event.
+    host_replica: bool = False
+    # Path to a file holding the shared swarm secret (transport-level HMAC).
+    secret_file: Optional[str] = None
+    allow_unrobust_topk: bool = False
+    # Telemetry plane: round tracing, metrics registry, flight recorder.
+    telemetry: bool = True
+    # Training-health layer (post-round sketches, mass accounting).
+    health_probe: bool = True
+    # Swarm watchdog: anomaly detectors ticked on the report beat.
+    watchdog: bool = True
+    # Hedged recovery of predicted-late tile ranges when leading.
+    hedge: bool = True
+    tail_redundancy_frac: float = 0.0
+    # Local Prometheus text endpoint (GET /metrics) on loopback; 0 = off.
+    metrics_port: int = 0
+    # The card unless "cpu" is asked for; raises when there is no card.
+    device: DeviceLike = None
 
     def __post_init__(self):
         if not self.peer_id:
             self.peer_id = f"vol-{uuid.uuid4().hex[:8]}"
         if self.averaging in ("gossip", "butterfly", "byzantine"):
-            raise NotImplementedError(f"averaging {self.averaging!r} is not ported yet; ported: none, sync")
+            raise NotImplementedError(f"averaging {self.averaging!r} is not ported yet; ported: {PORTED}")
         if self.averaging not in ("none", "sync"):
             raise ValueError(f"unknown averaging {self.averaging!r}")
         if self.wire not in ("f32", "bf16"):
-            raise NotImplementedError(f"wire {self.wire!r} is not ported yet; ported: f32, bf16")
+            raise NotImplementedError(f"wire {self.wire!r} is not ported yet; ported: {PORTED}")
+        if self.average_interval_s is None:
+            self.average_interval_s = 0.0  # the reference's AUTO for every ported mode
+        if self.average_interval_s < 0:
+            raise ValueError(f"average_interval_s must be >= 0, got {self.average_interval_s}")
+        if self.average_interval_s > 0:
+            raise NotImplementedError(
+                f"average_interval_s={self.average_interval_s} (the wall-clock cadence) is not ported yet; "
+                f"ported: {PORTED}"
+            )
+        for name, (default, what) in LATER_SLICES.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} ({what}) is not ported yet; ported: {PORTED}"
+                )
+        if self.round_deadline_s < 0:
+            raise ValueError(f"round_deadline_s must be >= 0, got {self.round_deadline_s}")
+        if not (0 <= self.metrics_port <= 65535):
+            raise ValueError(f"metrics_port must be in [0, 65535] (0 = off), got {self.metrics_port}")
+        if self.target_mode not in ("stop", "record"):
+            raise ValueError(f"unknown target_mode {self.target_mode!r}")
         if isinstance(self.mesh, str) and self.mesh:
             axes = parse_mesh_spec(self.mesh)
             if any(v > 1 for k, v in axes.items() if k != "dp"):
-                raise NotImplementedError(f"mesh {self.mesh!r}: only dp is ported yet")
+                raise NotImplementedError(f"mesh {self.mesh!r}: axes other than dp are not ported yet")
+        if self.mesh_codec not in _CODEC_BACKENDS:
+            raise ValueError(f"unknown mesh codec {self.mesh_codec!r}")
         if self.mesh_collective not in ("auto", "ring", "off"):
             raise ValueError(f"unknown mesh collective {self.mesh_collective!r}")
 
 
 def _parse_addrs(spec: Optional[str]) -> list:
-    """``host:port[,host:port...]`` -> [(host, port), ...]."""
+    """``host:port[,host:port...]`` -> [(host, port), ...]. Several
+    coordinators = several DHT bootstrap nodes: a volunteer can join (and a
+    rejoiner can re-bootstrap) as long as ANY of them is alive."""
     if not spec:
         return []
     out = []
@@ -109,7 +245,7 @@ def _parse_addrs(spec: Optional[str]) -> list:
             continue
         host, _, port = part.rpartition(":")
         if not host or not port.isdigit():
-            raise ValueError(f"bad bootstrap address {part!r} in {spec!r}: expected host:port")
+            raise ValueError(f"bad coordinator address {part!r} in {spec!r}: expected host:port")
         out.append((host, int(port)))
     return out
 
@@ -118,17 +254,31 @@ class Volunteer:
     def __init__(self, cfg: VolunteerConfig):
         self.cfg = cfg
         # One telemetry bundle per volunteer: round spans, the metrics
-        # registry, the flight recorder and the training-health probe (on,
-        # as in the reference). The watchdog ticks on the coordinator report
-        # beat, which is not ported, so it stays off rather than idle.
+        # registry, the flight recorder, the training-health probe and the
+        # watchdog (ticked on the report beat).
         self.telemetry = Telemetry(
-            peer_id=cfg.peer_id, enabled=True, health_enabled=True, watchdog_enabled=False
+            peer_id=cfg.peer_id, enabled=cfg.telemetry,
+            health_enabled=cfg.telemetry and cfg.health_probe,
+            watchdog_enabled=cfg.telemetry and cfg.watchdog,
         )
-        self.transport = Transport(cfg.host, cfg.port)
+        self._metrics_server = None
+        self._loop_monitor = None
+        # Structured-log identity; first volunteer of a process wins.
+        from distributedvolunteercomputing_tpu_torch.utils.logging import current_log_context, set_log_fields
+
+        if "peer" not in current_log_context():
+            set_log_fields(peer=cfg.peer_id, zone=None)
+        self.transport = Transport(
+            cfg.host, cfg.port, advertise_host=cfg.advertise_host, secret=read_secret(cfg.secret_file),
+        )
         self.dht = DHTNode(self.transport)
         self.membership: Optional[SwarmMembership] = None
+        self.control_plane = None  # ControlPlaneClient (failover routing)
+        self.replica = None  # ControlPlaneReplica when host_replica
         self.averager = None
+        self.state_sync: Optional[StateSyncService] = None
         self.trainer: Optional[Trainer] = None
+        self._report_task: Optional[asyncio.Task] = None
         self._stop = threading.Event()
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self.summary: Dict[str, Any] = {}
@@ -156,34 +306,78 @@ class Volunteer:
     # -- lifecycle ---------------------------------------------------------
 
     async def start(self) -> None:
-        """Transport, DHT, membership and averager; then the codec on this
-        volunteer's device (a failed kernel build raises here); then the
-        trainer."""
+        """The swarm services, the codec on this volunteer's device (a
+        failed kernel build raises here), the trainer, the checkpoint
+        restore, the state-sync pull and the report loop."""
         self._loop = asyncio.get_running_loop()
         cfg = self.cfg
+        from distributedvolunteercomputing_tpu_torch.utils.asyncio_debug import maybe_enable_from_env
+
+        # DVC_ASYNC_DEBUG=1: loop stall/race detectors (stopped at teardown)
+        self._loop_monitor = maybe_enable_from_env()
         await self.transport.start()
         self.telemetry.register_rpcs(self.transport)
-        await self.dht.start(bootstrap=_parse_addrs(cfg.bootstrap) or None)
-        namespace = f"{cfg.model}/params"
+        if cfg.metrics_port:
+            from distributedvolunteercomputing_tpu_torch.swarm.telemetry import MetricsHTTPServer
+
+            # Loopback ONLY: plain unauthenticated HTTP serving the whole
+            # registry must not ride the volunteer's public bind address.
+            self._metrics_server = MetricsHTTPServer(self.telemetry, "127.0.0.1", cfg.metrics_port)
+            await self._metrics_server.start()
+        await self.dht.start(bootstrap=_parse_addrs(cfg.coordinator) or None)
+        from distributedvolunteercomputing_tpu_torch.swarm.control_plane import (
+            ControlPlaneClient,
+            ControlPlaneReplica,
+        )
+
+        # Always built: it costs nothing until a replica answers, and the
+        # direct DHT path stays the fallback every beat.
+        self.control_plane = ControlPlaneClient(self.transport, self.dht, cfg.peer_id)
+        if cfg.host_replica:
+            self.replica = ControlPlaneReplica(self.transport, self.dht, telemetry=self.telemetry)
+            await self.replica.start()
+        namespace = f"{cfg.model}/{cfg.average_what}"
         self.membership = SwarmMembership(
-            self.dht, cfg.peer_id, ttl=HEARTBEAT_TTL_S,
+            self.dht, cfg.peer_id, ttl=cfg.heartbeat_ttl,
             extra_info={"model": cfg.model, "avg_ns": namespace},
             bandwidth_source=self.transport.bandwidth_advertisement,
+            # Announce + report + peers snapshot coalesce into one
+            # cp.exchange per heartbeat while a replica is reachable.
+            control_plane=self.control_plane,
+            report_source=self._build_report,
             telemetry=self.telemetry,
         )
         await self.membership.join()
         if cfg.averaging != "none":
             self.averager = make_averager(
                 cfg.averaging, self.transport, self.dht, self.membership,
+                min_group=cfg.min_group, max_group=cfg.max_group,
                 join_timeout=cfg.join_timeout, gather_timeout=cfg.gather_timeout,
-                wire=cfg.wire, telemetry=self.telemetry, namespace=namespace,
+                wire=cfg.wire, adaptive_timeout=cfg.adaptive_timeout,
+                round_deadline_s=cfg.round_deadline_s or None,
+                control_plane=self.control_plane, telemetry=self.telemetry,
+                hedge=cfg.hedge, tail_redundancy_frac=cfg.tail_redundancy_frac,
+                namespace=namespace,
             )
         bundle = get_model(cfg.model, **cfg.model_overrides)
+        on_step = None
+        if cfg.checkpoint_dir and cfg.checkpoint_every > 0:
+            from distributedvolunteercomputing_tpu_torch.training.checkpoint import save_async
+
+            ckpt_dir, every = cfg.checkpoint_dir, cfg.checkpoint_every
+
+            def on_step(trainer, step_no):
+                # Periodic snapshot: the host copy here, the file write on
+                # a background thread.
+                if step_no % every == 0:
+                    save_async(trainer, ckpt_dir)
+
         mesh = cfg.mesh if isinstance(cfg.mesh, Mesh) else make_mesh(**parse_mesh_spec(cfg.mesh)) if cfg.mesh else None
         # The averager resolves the process default lazily, so configuring
         # here covers the averager built above.
         codec = mesh_codec_mod.configure(
             device=None if mesh is not None else cfg.device,
+            backend=_CODEC_BACKENDS[cfg.mesh_codec],
             mesh=mesh,
             collective=cfg.mesh_collective,
         )
@@ -198,6 +392,8 @@ class Volunteer:
             lr=cfg.lr,
             seed=cfg.seed,
             init_seed=cfg.init_seed,
+            param_dtype=cfg.param_dtype,
+            accum_steps=cfg.accum_steps,
             total_steps=cfg.steps,
             metrics_path=cfg.metrics_path,
             volunteer_id=cfg.peer_id,
@@ -207,18 +403,175 @@ class Volunteer:
             average_every=cfg.average_every,
             overlap=cfg.overlap,
             max_staleness=cfg.max_staleness,
+            on_step=on_step,
         )
+        if self.averager is not None:
+            # The checkpoint sidecars reach the averager's wire state here.
+            self.trainer._wire_averager = self.averager
+        if cfg.checkpoint_dir:
+            from distributedvolunteercomputing_tpu_torch.training.checkpoint import maybe_restore
+
+            maybe_restore(self.trainer, cfg.checkpoint_dir)
+        if cfg.averaging != "none":
+            await self._sync_state(bundle)
+        if self.telemetry.watchdog.enabled:
+            # Probes over the surfaces built above, ticked once per report
+            # beat (_build_report).
+            transport = self.transport
+
+            def _peer_bandwidths(max_age_s: float = 120.0) -> Dict[str, float]:
+                cutoff = time.monotonic() - max_age_s
+                return {
+                    f"{host}:{port}": float(st.bw_down_ewma)
+                    for (host, port), st in transport._peer_stats.items()
+                    if st.bw_down_ewma is not None and st.bw_down_t >= cutoff
+                }
+
+            self.telemetry.watchdog.wire_volunteer(
+                averager=self.averager,
+                control_plane=self.control_plane,
+                health=self.telemetry.health,
+                bandwidths=_peer_bandwidths,
+            )
+        self._report_task = asyncio.create_task(self._report_loop())
         log.info(
             "volunteer %s up on %s:%d (model=%s averaging=%s)",
             cfg.peer_id, *self.transport.addr, cfg.model, cfg.averaging,
         )
 
+    async def _sync_state(self, bundle) -> None:
+        """Peer-pull state sync: catch up to the swarm BEFORE the first step
+        (after a restore), then announce this volunteer as a provider. The
+        provider serves the trainer's host snapshot, never its tensors."""
+        cfg = self.cfg
+        # Serve state over the averaging wire's codec (bf16 halves a rejoin).
+        self.state_sync = StateSyncService(
+            self.transport, self.dht, cfg.peer_id, namespace=cfg.model,
+            wire=cfg.wire if cfg.wire == "bf16" else "f32",
+        )
+
+        def provider():
+            step, params = self.trainer.host_snapshot()
+            return step, bundle.avg_select(params)
+
+        self.state_sync.set_provider(provider)
+        step0 = int(self.trainer.state.step)
+        received0 = self.transport.bytes_received
+        t0 = time.perf_counter()
+        pulled = await self.state_sync.pull(bundle.avg_select(self.trainer.state.params), step0)
+        pull_s = time.perf_counter() - t0
+        if pulled is not None:
+            step, subtree = pulled
+            self.trainer.adopt_params(bundle.avg_merge(self.trainer.state.params, subtree), step=step)
+        self.trainer.metrics.record_event(
+            int(self.trainer.state.step), "state_pull",
+            {"pulled": pulled is not None, "from_step": step0, "s": pull_s,
+             "bytes": self.transport.bytes_received - received0},
+        )
+        await self.state_sync.announce()
+
+    def _build_report(self) -> dict:
+        """This volunteer's metrics report (the coord.report payload),
+        piggybacked on every batched control-plane exchange by the
+        membership heartbeat, and sent on its own by the report loop while
+        no replica is reachable. Reads plain ints and gauges only."""
+        report = {
+            "peer": self.cfg.peer_id,
+            "step": int(self.trainer.state.step) if self.trainer else 0,
+            "samples_per_sec": self.trainer.metrics.samples_per_sec() if self.trainer else 0.0,
+            **{k: v for k, v in self.summary.items()},
+        }
+        if self.averager is not None and self.averager._agg_gauges:
+            # Live leader-aggregation gauges, reported mid-run.
+            report["aggregation"] = dict(self.averager._agg_gauges)
+        if self.averager is not None:
+            # The data path's backend, its op counts and kernel launches.
+            report["mesh_codec"] = self.averager.mesh_codec.stats()
+        if self.telemetry.enabled:
+            report["telemetry"] = self.telemetry.summary()
+        wd = self.telemetry.watchdog
+        if wd.enabled:
+            # One watchdog evaluation per report beat; its compact firing
+            # set rides the same exchange.
+            wd.tick()
+            summary = wd.summary()
+            if summary is not None:
+                report["watchdog"] = summary
+        health = self.telemetry.health.summary()
+        if health is not None:
+            report["health"] = health
+        failover_stats = getattr(self.averager, "failover_stats", None)
+        if failover_stats is not None:
+            fo = failover_stats()
+            if fo["leaders_deposed"] or fo["rounds_recovered"] or fo["recoveries_failed"]:
+                report["failover"] = fo
+        return report
+
+    async def _report_loop(self) -> None:
+        caddrs = _parse_addrs(self.cfg.coordinator)
+        caddr = caddrs[0] if caddrs else None
+        while not self._stop.is_set():
+            await asyncio.sleep(5.0)
+            if self.state_sync is not None:
+                try:
+                    # Re-announce our step so rejoining peers can find the
+                    # freshest provider (TTL'd, like heartbeats).
+                    await self.state_sync.announce()
+                except Exception:
+                    pass
+            if caddr is None:
+                continue
+            if self.membership is not None and self.membership.last_beat_batched:
+                # The last heartbeat went through a replica carrying our
+                # report; a standalone coord.report would double the cost.
+                continue
+            try:
+                report = self._build_report()
+                await self.transport.call(
+                    caddr, "coord.report", report, timeout=5.0, connect_timeout=1.5,
+                )
+            except Exception:
+                # Coordinator reachability is not correctness-critical; with
+                # several coordinators, rotate to the next one.
+                if len(caddrs) > 1:
+                    caddrs = caddrs[1:] + caddrs[:1]
+                    caddr = caddrs[0]
+
+    def _train_blocking(self) -> Dict[str, Any]:
+        assert self.trainer is not None
+        result = self.trainer.run(
+            steps=self.cfg.steps,
+            target_loss=self.cfg.target_loss,
+            target_mode=self.cfg.target_mode,
+            stop_flag=self._stop.is_set,
+        )
+        if self.cfg.checkpoint_dir:
+            from distributedvolunteercomputing_tpu_torch.training.checkpoint import (
+                latest_step,
+                save,
+                wait_pending_saves,
+            )
+
+            # Final save is SYNCHRONOUS (preemption-safe), after draining any
+            # in-flight periodic write. Skip it only when the drained save
+            # covers the current state EXACTLY: same step AND same mutation
+            # count (the end-of-run overlap drain can merge at an unchanged
+            # step number).
+            drained = wait_pending_saves(self.trainer)
+            current_id = (int(self.trainer.state.step), self.trainer.mutation_counter)
+            already_saved = (
+                getattr(self.trainer, "_ckpt_snapshot_id", None) == current_id
+                and latest_step(self.cfg.checkpoint_dir) == current_id[0]
+            )
+            if drained and not already_saved:
+                save(self.trainer, self.cfg.checkpoint_dir)
+        return result
+
     async def train(self) -> Dict[str, Any]:
         """Train ``cfg.steps`` steps on a worker thread (the swarm services
-        keep running on this loop); returns the summary."""
-        self.summary = await asyncio.to_thread(
-            self.trainer.run, steps=self.cfg.steps, stop_flag=self._stop.is_set
-        )
+        keep running on this loop), then the final checkpoint; returns the
+        summary."""
+        self.summary = await asyncio.to_thread(self._train_blocking)
         if self.averager is not None:
             self.summary.update(self.averager.stats())
         self.summary["wan_bytes_sent"] = self.transport.bytes_sent
@@ -236,20 +589,38 @@ class Volunteer:
             await self.stop()
 
     async def stop(self) -> None:
+        """The reference's teardown order: report task, membership leave,
+        replica retire, DHT, metrics endpoint, loop monitor, transport."""
         self._stop.set()
+        if self._report_task is not None:
+            self._report_task.cancel()
         if self.membership is not None:
             try:
                 await self.membership.leave()
             except Exception as e:  # noqa: BLE001 — leaving is best-effort
                 log.debug("membership leave failed: %s", errstr(e))
+        if self.replica is not None:
+            try:
+                # The retiring tombstone makes the swarm re-resolve the
+                # active replica set at once.
+                await self.replica.retire(grace=0.0)
+            except Exception:
+                pass
         await self.dht.stop()
+        if self._metrics_server is not None:
+            try:
+                await self._metrics_server.close()
+            except Exception:
+                pass
+        if self._loop_monitor is not None:
+            await self._loop_monitor.stop()
         await self.transport.close()
 
     def install_signal_handlers(self) -> None:
         """SIGTERM == preemption notice; SIGINT == operator stop."""
 
         def _on_signal(signum, frame):
-            log.info("signal %d: stopping after current step", signum)
+            log.info("signal %d: stopping after current step (preemption-safe)", signum)
             self._stop.set()
 
         signal.signal(signal.SIGTERM, _on_signal)

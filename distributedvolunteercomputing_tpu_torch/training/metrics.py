@@ -8,6 +8,7 @@ aggregates swarm-level numbers (SURVEY.md §5).
 from __future__ import annotations
 
 import json
+import threading
 import time
 from typing import IO, Any, Dict, Optional
 
@@ -16,6 +17,8 @@ class MetricsWriter:
     def __init__(self, path: Optional[str] = None, volunteer_id: str = "local"):
         self.volunteer_id = volunteer_id
         self._fh: Optional[IO[str]] = open(path, "a") if path else None
+        # Events also come from the checkpoint writer thread: one line each.
+        self._lock = threading.Lock()
         self._t0 = time.monotonic()
         self._samples = 0
         self._last_rate_t = self._t0
@@ -37,8 +40,10 @@ class MetricsWriter:
                 "step": step,
                 **fields,
             }
-            self._fh.write(json.dumps(rec) + "\n")
-            self._fh.flush()
+            line = json.dumps(rec) + "\n"
+            with self._lock:
+                self._fh.write(line)
+                self._fh.flush()
 
     def record(self, step: int, metrics: Dict[str, Any], n_samples: int = 0) -> None:
         self._samples += n_samples

@@ -7,7 +7,13 @@ callback: blocking (the round's result replaces the params) or overlapped
 with the next steps (Moshpit merge ``averaged + (current - snapshot)``).
 With a ``mesh`` (``parallel/mesh.py``) the step is data-parallel over its dp
 ranks (``parallel/train_step.py``): the averager reads rank 0's params, and a
-merge writes the averaged params back to every rank. Gradient averaging, the
+merge writes the averaged params back to every rank.
+
+Concurrent readers (the state-sync provider and the checkpoint writer, off
+the trainer thread) never touch ``state``: the step updates its tensors in
+place. They read ``host_snapshot()``, a host copy taken between steps at
+init, after an adoption or a restore, and at every averaging point (reusing
+the round's own host copy of the params). Gradient averaging, the
 wall-clock cadence, the outer optimizer, FSDP and the other mesh axes,
 multi-step calls and eval come with later slices of the port; the
 constructor does not accept them yet.
@@ -77,6 +83,9 @@ class Trainer:
         # The volunteer's local mesh (dp only): a full replica on each rank,
         # the batch split over them. None = one device.
         mesh: Optional[Any] = None,
+        # Called after each step on the trainer thread (the volunteer's
+        # checkpoint cadence).
+        on_step: Optional[Callable[["Trainer", int], None]] = None,
     ):
         if accum_steps < 1 or batch_size % accum_steps != 0:
             raise ValueError(
@@ -98,6 +107,8 @@ class Trainer:
         # task-constant, so every volunteer builds the same initial params.
         self.tx = make_optimizer(optimizer, lr=lr, total_steps=total_steps)
         params = bundle.init(torch.Generator(device=self.device).manual_seed(init_seed))
+        # Kept for the checkpoint restore, which re-applies it.
+        self.param_dtype = param_dtype
         if param_dtype:
             params = cast_floating(params, param_dtype)
         step_rng = torch.Generator(device=self.device).manual_seed(seed)
@@ -135,6 +146,14 @@ class Trainer:
             else None
         )
         self._inflight: Optional[tuple] = None  # (launch_step, payload0, future)
+        self.on_step = on_step
+        # Bumped on every out-of-band params mutation (a merge, an adoption):
+        # with the step it tells the checkpoint layer whether the state at
+        # one step number still matches its last save.
+        self.mutation_counter = 0
+        # (step, host params tree), self._snapshot: replaced whole, so a
+        # reader on another thread always sees one consistent pair.
+        self._take_snapshot(0)
 
     def data_iter(self) -> Iterator[Batch]:
         while True:
@@ -170,24 +189,54 @@ class Trainer:
             off += x.numel()
         return tree_unflatten(treedef, out)
 
-    def _swap_params(self, new_params: Any) -> None:
+    def _take_snapshot(self, step_no: int, host: Any = None) -> None:
+        """Refresh the cross-thread snapshot, on the trainer thread between
+        steps. ``host`` is a host tree of the live params already made (a
+        round's payload copy); without it, one device-to-host copy."""
+        self._snapshot = (step_no, self._host_tree(self.state.params) if host is None else host)
+
+    def host_snapshot(self) -> Tuple[int, Any]:
+        """(step, host params tree of f32 numpy leaves); safe from any thread."""
+        return self._snapshot
+
+    def _write_params(self, new_params: Any) -> None:
         """Copy a host tree of the full params into the live params of every
-        replica in place (the optimizer's moments keep their tensors) — the
-        ONE place a merge becomes live state, shared by the blocking and
-        overlapped paths."""
+        replica in place; the optimizer's moments keep their tensors."""
         with torch.no_grad():
-            host = [torch.from_numpy(np.ascontiguousarray(v, np.float32)) for v in tree_leaves(new_params)]
+            src = [torch.from_numpy(np.ascontiguousarray(v, np.float32)) for v in tree_leaves(new_params)]
             for replica in self._replicas:
-                for p, v in zip(tree_leaves(replica.params), host):
+                for p, v in zip(tree_leaves(replica.params), src):
                     p.copy_(v)
+
+    def _swap_params(self, new_params: Any, step_no: int) -> None:
+        """A merged host tree becomes live state in every replica — the ONE
+        place a merge lands, shared by the blocking and overlapped paths —
+        and the snapshot. The merged tree is the snapshot itself when the
+        params are f32 (what the copy wrote is what it holds)."""
+        self._write_params(new_params)
+        self.mutation_counter += 1
+        exact = all(p.dtype == torch.float32 for p in tree_leaves(self.state.params))
+        self._take_snapshot(step_no, new_params if exact else None)
+
+    def adopt_params(self, params: Any, step: Optional[int] = None) -> None:
+        """Replace the params of every replica in place with a host tree,
+        and optionally the step counter (the state-sync pull). The
+        optimizer's moments are kept: at adoption they are either cold or
+        restored, and the averaging rounds re-sync them either way."""
+        self._write_params(params)
+        if step is not None:
+            for replica in self._replicas:
+                replica.step = int(step)
+        self.mutation_counter += 1
+        self._take_snapshot(int(self.state.step))
 
     def _note_window_progress(self, step_no: int) -> None:
         if self._last_merge_step is not None:
             self.steps_since_merge = max(1, step_no - self._last_merge_step)
 
-    def _run_average_round(self, step_no: int) -> Optional[Any]:
-        """One blocking round: host payload -> averager -> merged tree, or
-        None when no group formed / the round failed."""
+    def _run_average_round(self, step_no: int) -> Tuple[Any, Optional[Any]]:
+        """One blocking round: (the host copy of the params it shipped, the
+        merged tree or None when no group formed / the round failed)."""
         host = self._host_tree(self.state.params)
         payload = self.bundle.avg_select(host)
         self._note_window_progress(step_no)
@@ -198,14 +247,17 @@ class Trainer:
             {"avg_s": time.monotonic() - t_avg, "ok": averaged is not None, "what": "params"},
         )
         if averaged is None:
-            return None
-        return self.bundle.avg_merge(host, tree_map(np.asarray, averaged))
+            return host, None
+        return host, self.bundle.avg_merge(host, tree_map(np.asarray, averaged))
 
     def _launch_overlap_round(self, step_no: int) -> None:
         """Snapshot the payload to the host and run the round on the pool
         while the next steps run (the train step updates the params in
-        place, so the pool must never read them)."""
-        payload0 = self._host_tree(self.bundle.avg_select(self.state.params))
+        place, so the pool must never read them). The same host copy is the
+        cross-thread snapshot."""
+        host = self._host_tree(self.state.params)
+        self._take_snapshot(step_no, host)
+        payload0 = self.bundle.avg_select(host)
         self._note_window_progress(step_no)
         t0 = time.monotonic()
         fut = self._avg_pool.submit(lambda: (self.averager(payload0, step_no), time.monotonic() - t0))
@@ -242,7 +294,7 @@ class Trainer:
             lambda avg, cur, p0: np.asarray(avg, np.float32) + (cur - p0),
             averaged, self.bundle.avg_select(current), payload0,
         )
-        self._swap_params(self.bundle.avg_merge(current, merged))
+        self._swap_params(self.bundle.avg_merge(current, merged), step_no)
         # Progress up to the LAUNCH step entered the average.
         self._last_merge_step = launch_step
 
@@ -292,13 +344,22 @@ class Trainer:
                     # Merge a round that completed since the last step, then
                     # (at the cadence, none in flight) launch the next one.
                     self._finish_overlap_round(step_no)
-                    if step_no % self.average_every == 0 and self._inflight is None:
-                        self._launch_overlap_round(step_no)
+                    if step_no % self.average_every == 0:
+                        if self._inflight is None:
+                            self._launch_overlap_round(step_no)
+                        else:
+                            # At the cadence whether or not a round runs:
+                            # state sync serves current weights.
+                            self._take_snapshot(step_no)
                 elif step_no % self.average_every == 0:
-                    merged = self._run_average_round(step_no)
+                    host, merged = self._run_average_round(step_no)
                     if merged is not None:
-                        self._swap_params(merged)
+                        self._swap_params(merged, step_no)
                         self._last_merge_step = step_no
+                    else:
+                        self._take_snapshot(step_no, host)
+            if self.on_step is not None:
+                self.on_step(self, step_no)
             if at_log_point:
                 log.info(
                     "step %d loss %.4f (%.1f samples/s)",

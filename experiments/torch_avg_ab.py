@@ -1,0 +1,55 @@
+#!/usr/bin/env python3
+"""``chip_smoke.py``'s averaging phase from two trees in turns, on one GPU.
+
+    git archive <parent commit> | tar -x -C build/parent   # the other tree
+    python3 experiments/torch_avg_ab.py [--other build/parent] [--order pccppccp]
+
+Each run is a process of its own that imports ``chip_smoke`` and the port
+from its tree, builds that tree's kernels and runs ``averaging_phase()``:
+two full-width gpt2_small volunteers in blocking bf16 sync rounds on the
+one card. ``p`` is the other tree, ``c`` this checkout. Prints one JSON
+line per run (round seconds per volunteer, committed rounds, the phase's
+round spans), then the card's name and power limit.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+CODE = (
+    "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs;"
+    "from distributedvolunteercomputing_tpu_torch.utils.torchenv import resolve_device; resolve_device(None);"
+    "cs.averaging_phase()"
+)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--other", default=str(HERE / "build" / "parent"), help="the other tree (p)")
+    ap.add_argument("--order", default="pccppccp", help="runs in turn: p = the other tree, c = this one")
+    args = ap.parse_args()
+    trees = {"p": Path(args.other).resolve(), "c": HERE}
+    for tag in args.order:
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-c", CODE, str(trees[tag])], capture_output=True, text=True, cwd=str(trees[tag])
+        )
+        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        row = next((r for r in rows if r.get("phase") == "averaging"), None)
+        rec = {"tree": tag, "rc": proc.returncode, "wall_s": time.time() - t0}
+        if row:
+            rec.update(round_s=row["round_s"], rounds_ok=row["rounds_ok"], run_s=row["run_s"],
+                       spans=row["spans"], steps=row["steps"])
+        else:
+            rec["err"] = proc.stderr[-1500:]
+        print(json.dumps(rec), flush=True)
+    subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], check=False)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -305,7 +305,7 @@ def test_two_mesh_volunteers_fold_on_the_ring(monkeypatch):
     async def main():
         v0 = Volunteer(VolunteerConfig(peer_id="v0", seed=1, **base))
         await v0.start()
-        v1 = Volunteer(VolunteerConfig(peer_id="v1", seed=2, bootstrap="%s:%d" % v0.transport.addr, **base))
+        v1 = Volunteer(VolunteerConfig(peer_id="v1", seed=2, coordinator="%s:%d" % v0.transport.addr, **base))
         try:
             await v1.start()
             recording(v0, 0), recording(v1, 1)

@@ -48,9 +48,49 @@ SWARM_SLICE = (
     "distributedvolunteercomputing_tpu_torch.swarm.watchdog",
 )
 
+# The modules of the lifecycle slice.
+LIFECYCLE_SLICE = (
+    "distributedvolunteercomputing_tpu_torch.utils.asyncio_debug",
+    "distributedvolunteercomputing_tpu_torch.swarm.controller",
+    "distributedvolunteercomputing_tpu_torch.swarm.control_plane",
+    "distributedvolunteercomputing_tpu_torch.swarm.coordinator",
+    "distributedvolunteercomputing_tpu_torch.swarm.state_sync",
+    "distributedvolunteercomputing_tpu_torch.training.checkpoint",
+)
+ENTRY_SCRIPTS = [REPO / "coordinator_torch.py", REPO / "run_volunteer_torch.py"]
+
 
 def test_scans_cover_the_swarm_slice():
     assert set(SWARM_SLICE) <= {m for m, _ in _port_modules()}
+
+
+def test_scans_cover_the_lifecycle_slice():
+    assert set(LIFECYCLE_SLICE) <= {m for m, _ in _port_modules()}
+    assert all(p.exists() for p in ENTRY_SCRIPTS)
+
+
+def test_entry_scripts_load_no_jax():
+    # A subprocess, as above: each script's own imports, then the package
+    # modules its main() reaches, then the volunteer script's main() itself.
+    code = (
+        "import importlib, json, runpy, sys\n"
+        f"for s in {[str(p) for p in ENTRY_SCRIPTS]!r}: runpy.run_path(s)\n"
+        f"for m in {list(LIFECYCLE_SLICE) + ['distributedvolunteercomputing_tpu_torch.swarm.volunteer']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "sys.argv = ['run_volunteer_torch.py', '--list-models']\n"
+        f"runpy.run_path({str(ENTRY_SCRIPTS[1])!r}, run_name='__main__')\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=120, check=True,
+    )
+    lines = out.stdout.strip().splitlines()
+    assert "gpt2_small" in lines[:-1]
+    leaked = [m for m in json.loads(lines[-1]) if _forbidden(m)]
+    assert not leaked, f"entry scripts pulled in {leaked[:10]}"
 
 
 def test_import_loads_no_jax():
@@ -72,9 +112,9 @@ def test_import_loads_no_jax():
     assert not leaked, f"port imports pulled in {leaked[:10]}"
 
 
-SCRIPTS = [REPO / "chip_smoke.py"] + [REPO / "experiments" / f for f in (
+SCRIPTS = [REPO / "chip_smoke.py"] + ENTRY_SCRIPTS + [REPO / "experiments" / f for f in (
     "torch_step_profile.py", "torch_ring_cards.py", "torch_dp_trace.py", "torch_attention_shapes.py",
-    "torch_dq_variants.py", "torch_codec_variants.py")]
+    "torch_dq_variants.py", "torch_codec_variants.py", "torch_avg_ab.py")]
 
 
 @pytest.mark.parametrize("path", SCRIPTS + [p for _, p in _port_modules()], ids=lambda p: p.name)

@@ -32,6 +32,11 @@ COPIED = [
     "swarm/matchmaking.py",
     "swarm/agg_stream.py",
     "swarm/averager.py",
+    "utils/asyncio_debug.py",
+    "swarm/controller.py",
+    "swarm/control_plane.py",
+    "swarm/coordinator.py",
+    "swarm/state_sync.py",
 ]
 
 # module -> [(reason, reference text, port text)]. A pair of ("tail", marker)
@@ -92,7 +97,7 @@ raise at construction until their slices arrive.
 """,
             """        _check_ported(
             wire, resilience=resilience, failure_detector=failure_detector,
-            control_plane=control_plane, controller=controller, shard_manager=shard_manager,
+            controller=controller, shard_manager=shard_manager,
         )
         if wire not in ("f32", "bf16", "q8", "topk", "powersgd", "sign"):
 """,
@@ -168,6 +173,14 @@ raise at construction until their slices arrive.
             "are not carried, and make_averager says so",
             ("tail", "\n\nclass GossipAverager(AveragerBase):"),
             ("tail", "\n\n\n# -- what this slice of the port carries"),
+        ),
+    ],
+    "swarm/state_sync.py": [
+        (
+            "a pull returns host numpy leaves, as the reference's does; the "
+            "port's unflatten returns tensors unless asked for the host",
+            "                return got_step, unflatten_from_buffer(buf, specs, treedef)\n",
+            "                return got_step, unflatten_from_buffer(buf, specs, treedef, device=None)\n",
         ),
     ],
 }

@@ -150,7 +150,7 @@ def test_two_port_volunteers_train_and_average():
         # the member's last fetch).
         v0 = Volunteer(VolunteerConfig(peer_id="v0", seed=1, **base))
         await v0.start()
-        v1 = Volunteer(VolunteerConfig(peer_id="v1", seed=2, bootstrap="%s:%d" % v0.transport.addr, **base))
+        v1 = Volunteer(VolunteerConfig(peer_id="v1", seed=2, coordinator="%s:%d" % v0.transport.addr, **base))
         try:
             await v1.start()
             return await asyncio.gather(v0.train(), v1.train())
