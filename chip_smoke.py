@@ -115,9 +115,47 @@ Phases, each printing one JSON line:
             host-copy ms, write and restore seconds, and the coordinator's
             report count.
 
+11. gossip  two ``Volunteer``s in this process, gpt2_small at full width, batch 8,
+            ``averaging="gossip"`` in params mode on the bf16 wire, blocking
+            rounds every ``PROTO_EVERY`` steps; each publishes its params at
+            start; the gather ceiling of these phases is ``PROTO_GATHER_S``
+            (several volunteers share this process's event loop). Until
+            each has made ``GOSSIP_MIXES`` successful exchanges.
+            Checked: that count; each recorded mix against the weighted mean
+            of the caller's buffer and the partner's as its
+            ``gossip.exchange`` handler served it (``PROTO_STAGES``,
+            ``proto_limit``), and the mixed weight their sum; every codec op
+            on the card; K4 launches at least two per exchange; K1-K3 24 /
+            12 / 12 per step; finite losses.
+12. butterfly  ``BFLY_N`` = 4 such volunteers with ``averaging="butterfly"`` on
+            the wall-clock cadence (``BFLY_INTERVAL_S``; each runs
+            ``ClockSync``), groups of all four, so every round runs both
+            hypercube stages, each under ``BFLY_STAGE_S``. Until each has ``BFLY_ROUNDS`` rounds in which
+            both stages mixed on time. Checked: those rounds; within a round
+            the four results bit-equal and within two bf16 roundings of the
+            weighted mean of the four payloads, each weighted by the steps
+            since its last merge as ``ProtoRecorder`` counts them (not the
+            trainer's own count); every codec op on the card; K4 at least
+            16 per full round; the seconds of each round and of each stage.
+13. byzantine  two such volunteers and an attacker, a ``run_volunteer_torch.py``
+            process with ``DVC_CHAOS_CONTRIB_SCALE=-4`` (``BYZ_SCALE``: its
+            real tree scaled by -4), all with ``averaging="byzantine"``,
+            ``method="trimmed_mean"`` and ``resilience=True`` (phi detector,
+            policy, controller), groups of three, rounds every
+            ``PROTO_EVERY`` steps. Until each honest volunteer has
+            ``BYZ_ROUNDS`` rounds that all three fed. Checked: those rounds;
+            each honest result inside the two honest payloads, widened by
+            one bf16 rounding (trim 1 of 3 is the coordinate median), and
+            the two honest results of a round bit-equal (both aggregate the
+            same three wire-rounded contributions); the aggregate on the
+            card, the attacker's codec ops too (no host op); each honest policy recorded
+            a rejection of the attacker; each report carries the
+            controller's state; the attacker exits 0 on SIGTERM.
+
 Then one line listing every kernel (``launches_lifecycle``: the counts of
-phase 10, in this process), the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``. Any failure raises: the script
+phase 10, ``launches_protocols`` those of phases 11-13, in this process),
+the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Any failure raises: the script
 exits non-zero and prints no ``ok`` line. It needs one card and no network.
 """
 
@@ -194,6 +232,16 @@ CODEC_TOL = {"rtol": 1e-5, "atol": 1e-6}
 # ulps of the same scale, and the smallest normal). The member fetches that
 # result over the bf16 wire: within one bf16 rounding of the leader's.
 AVG_TOL = {"bf16_u": 2.0**-8, "f32_ulps": 4 * 2.0**-24, "floor": 2.0**-126}
+# Protocol results on the bf16 wire (phases 11-13). A mixing stage rounds each of its inputs
+# to bf16 once (AVG_TOL's bf16_u of the stage's scale, at most the largest
+# input's) and mixes them in f32 (f32_ulps): a result of s stages is within
+# (s * bf16_u + f32_ulps) * max_i |x_i| + floor of the exact weighted mean of
+# the inputs x_i (``proto_limit``). Gossip mixes its own f32 buffer with the
+# partner's bf16 one: one stage. Butterfly round-trips both sides of each of
+# its two stages: two. The Byzantine median of three is one of the three
+# bf16-rounded payloads: with the attacker outside, within one bf16 rounding
+# (and the floor) of the honest pair's interval.
+PROTO_STAGES = {"gossip": 1, "butterfly": 2}
 # Ring (K6 / K7): rank counts checked on the card, and the whole fold
 # against native's host fold, which adds in batch order where the ring adds
 # in ring order: the reference's own tolerance for its ring
@@ -994,70 +1042,118 @@ def expected_codec_launches(
     return out
 
 
+class ProtoRecorder:
+    """Wraps an in-process volunteer's averager callback and its group
+    formation. Per averaging call: the group it formed (epoch, size), the
+    contribution's weight, the outcome (partners on time and absent,
+    degraded) and the seconds; with ``keep``, the flat payload and result of
+    the last ``keep`` calls that returned a result. The weight is the
+    samples behind the contribution as the recorder counts them: the batch
+    times the steps since the last call that returned a result (since the
+    trainer's step at wrapping time before the first), so a fault in the
+    trainer's own count shows in the value checks. ``groups`` counts the
+    groups formed. ``before`` and ``after(call, result)`` run around each
+    call; once ``done(recorder)`` holds, ``stop_all`` runs (by default it
+    stops this volunteer after its current step)."""
+
+    def __init__(self, vol, keep: int = 2):
+        from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer
+
+        self.vol, self.calls, self.groups = vol, [], 0
+        self.buffers = collections.deque(maxlen=keep)
+        self.group = self.outcome = None
+        self.last_merge = int(vol.trainer.state.step)
+        self.before = lambda: None
+        self.after = lambda call, result: None
+        self.done = lambda rec: False
+        self.stop_all = vol._stop.set
+        avg = vol.averager
+        inner, form_group, flush = vol._averager_callback, avg._form_group, avg._flush_round_outcome
+
+        async def counted_form_group(round_key):
+            group = await form_group(round_key)
+            self.group = (group.epoch, len(group.members)) if group is not None else None
+            self.groups += group is not None
+            return group
+
+        def recording_flush(duration_s, ok):
+            # The round's outcome, which the flush to the policy clears.
+            self.outcome = (dict(avg._last_outcomes or {}), bool(getattr(avg, "_round_degraded", False)))
+            return flush(duration_s, ok)
+
+        def cb(params, step):
+            if vol._stop.is_set():
+                return None
+            self.group = self.outcome = None
+            self.before()
+            weight = vol.cfg.batch_size * max(1, step - self.last_merge)
+            t0 = time.perf_counter()
+            result = inner(params, step)
+            outcomes, degraded = self.outcome or ({}, False)
+            call = {
+                "step": step, "weight": weight, "s": time.perf_counter() - t0, "ok": result is not None,
+                "epoch": self.group[0] if self.group else None, "size": self.group[1] if self.group else 0,
+                "outcomes": outcomes, "degraded": degraded,
+            }
+            if result is not None:
+                self.last_merge = step
+            self.calls.append(call)
+            self.after(call, result)
+            if result is not None and keep:
+                self.buffers.append({**call, "payload": flatten_to_buffer(params)[0],
+                                     "result": flatten_to_buffer(result)[0]})
+            if self.done(self):
+                self.stop_all()
+            return result
+
+        avg._form_group, avg._flush_round_outcome = counted_form_group, recording_flush
+        vol.trainer.averager = cb
+
+    def committed(self) -> int:
+        return sum(c["ok"] for c in self.calls)
+
+    def full_rounds(self, size: int, partners: int) -> list:
+        """Committed calls in a group of ``size`` that mixed with
+        ``partners`` partners on time and missed none."""
+        return [c for c in self.calls if c["ok"] and c["size"] == size and not c["degraded"]
+                and len(c["outcomes"].get("on_time", ())) == partners and not c["outcomes"].get("absent")]
+
+
 def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging") -> dict:
     """Two full-width volunteers averaging in blocking sync rounds (see the
     module doc). With ``mesh`` (a port ``Mesh``) each volunteer trains
     data-parallel over its ranks and its codec runs on them; ``collective``
     "ring" folds the leader's rounds on K6/K7."""
-    import numpy as np
-
     from distributedvolunteercomputing_tpu_torch import native
     from distributedvolunteercomputing_tpu_torch.ops import mesh_collective as mcol
     from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
     from distributedvolunteercomputing_tpu_torch.swarm.volunteer import Volunteer, VolunteerConfig
-    from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer
 
     if not native.ensure_built():
         raise RuntimeError("the host codec's C++ core did not build")
     out_dir = HERE / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    records = [collections.deque(maxlen=2), collections.deque(maxlen=2)]
-    round_launches = [0, 0]
-    groups_formed = [0, 0]
-    committed = [0, 0]
 
-    def recording(vol, i):
-        """Wrap the volunteer's averager callback: once ``AVG_COMMITS``
-        rounds have committed, stop the volunteer after its current step and
-        launch no more rounds; keep (payload, weight, result, led a streamed
-        round) of its last two committed rounds. Every committed round has
-        both volunteers in it, so the k-th committed round of one is the k-th
-        of the other. Also count the groups matchmaking forms for it (each is
-        one pack)."""
-        inner = vol._averager_callback
+    def recording(vol):
+        """Once ``AVG_COMMITS`` rounds have committed, the volunteer stops
+        after its current step and launches no more rounds. Every committed
+        round has both volunteers in it, so the k-th committed round of one
+        is the k-th of the other; each call also records whether this
+        volunteer led a streamed round."""
+        rec = ProtoRecorder(vol)
+        gauges = vol.averager._agg_gauges
+        streamed_before = [0]
 
-        def cb(params, step):
-            if committed[i] >= AVG_COMMITS:
-                return None  # launched in the step that saw the last round end
-            round_launches[i] += 1
-            gauges = vol.averager._agg_gauges
-            before = gauges.get("streamed_contribs", 0)
-            weight = vol.cfg.batch_size * max(1, vol.trainer.steps_since_merge)
-            result = inner(params, step)
-            led_streamed = gauges.get("streamed_contribs", 0) > before
-            if result is not None:
-                committed[i] += 1
-                records[i].append({
-                    "round": committed[i], "step": step, "weight": weight,
-                    "payload": flatten_to_buffer(params)[0], "result": flatten_to_buffer(result)[0],
-                    "led_streamed": led_streamed,
-                })
-            if committed[i] >= AVG_COMMITS:
-                vol._stop.set()  # as on SIGTERM: the trainer ends after this step
-            return result
+        def before():
+            streamed_before[0] = gauges.get("streamed_contribs", 0)
 
-        form_group = vol.averager._form_group
+        def after(call, result):
+            call["round"] = rec.committed()
+            call["led_streamed"] = gauges.get("streamed_contribs", 0) > streamed_before[0]
 
-        async def counted_form_group(round_key):
-            group = await form_group(round_key)
-            if group is not None:
-                groups_formed[i] += 1
-            return group
-
-        vol.averager._form_group = counted_form_group
-
-        vol.trainer.averager = cb
-        return vol
+        rec.before, rec.after = before, after
+        rec.done = lambda r: r.committed() >= AVG_COMMITS
+        return rec
 
     async def run_pair():
         base = dict(model="gpt2_small", batch_size=8, averaging="sync", wire="bf16",
@@ -1073,7 +1169,7 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
                                        coordinator="%s:%d" % v0.transport.addr, **base))
         await v1.start()
         start_s = time.perf_counter() - t0
-        recording(v0, 0), recording(v1, 1)
+        recs = [recording(v0), recording(v1)]
         torch.cuda.synchronize()
         reset_all_launch_counts()
         t0 = time.perf_counter()
@@ -1086,9 +1182,12 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
             await asyncio.gather(v0.stop(), v1.stop())
         torch.cuda.synchronize()
         launches = {**dict(mc.LAUNCHES), **dict(mcol.LAUNCHES), **flash_launches()}
-        return summaries, launches, start_s, time.perf_counter() - t0, paths
+        return summaries, launches, start_s, time.perf_counter() - t0, paths, recs
 
-    summaries, launches, start_s, run_s, paths = asyncio.run(run_pair())
+    summaries, launches, start_s, run_s, paths, recs = asyncio.run(run_pair())
+    round_launches = [len(r.calls) for r in recs]
+    groups_formed = [r.groups for r in recs]
+    committed = [r.committed() for r in recs]
     events = [[json.loads(line) for line in p.read_text().splitlines()] for p in paths]
     losses = [[e["loss"] for e in ev if "loss" in e] for ev in events]
     rounds_s = [[e.get("avg_s") for e in ev if e.get("event") == "avg_round" and e.get("ok")] for ev in events]
@@ -1148,7 +1247,7 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
         failures.append(f"codec launches {[launches[k] for k in expect]} != expected {expect}")
     if not all(losses) or not all(math.isfinite(x) for ls in losses for x in ls):
         failures.append("missing or non-finite losses")
-    row["values"] = check_averaged_values(records, failures)
+    row["values"] = check_averaged_values([r.buffers for r in recs], failures)
     emit(row)
     if failures:
         raise AssertionError(f"{phase} phase: {failures}")
@@ -1559,6 +1658,450 @@ def lifecycle_phase() -> dict:
     if failures:
         raise AssertionError(f"lifecycle phase: {failures}")
     return res["launches"]
+
+
+# ---------------------------------------------------------------------------
+# protocols: gossip, butterfly on the wall-clock cadence, Byzantine rounds
+# ---------------------------------------------------------------------------
+
+PROTO_EVERY = 2  # the step cadence of the gossip and Byzantine phases
+PROTO_MAX_STEPS = 400  # cap on each trainer's steps; the phases end on their round counts
+PROTO_WAIT_S = 300.0  # cap on each phase's training, and on the attacker's start
+# Each phase puts two to four full-width volunteers on one event loop, so a
+# round moves several 249 MB buffers through one Python loop, where the
+# reference's ceilings (20 s gather, 8 s per butterfly stage) are sized for
+# one volunteer per process: on a slow host, stages timed out at 8 s. The
+# phases' volunteers (the attacker too) get these ceilings instead.
+PROTO_GATHER_S = 60.0
+BFLY_STAGE_S = 30.0
+GOSSIP_MIXES = 2  # successful exchanges each gossip volunteer must make
+BFLY_N = 4  # butterfly volunteers: two hypercube stages
+BFLY_INTERVAL_S = 10.0  # the wall-clock cadence (AUTO's 20 s is held on the CPU)
+BFLY_ROUNDS = 2  # rounds in which both stages mixed, on each volunteer
+BYZ_ROUNDS = 2  # Byzantine rounds all three fed, on each honest volunteer
+BYZ_SCALE = "-4"  # the attacker's DVC_CHAOS_CONTRIB_SCALE
+
+
+def cuda_sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def proto_limit(stages: int, scale):
+    tol = AVG_TOL
+    return (stages * tol["bf16_u"] + tol["f32_ulps"]) * scale + tol["floor"]
+
+
+async def start_volunteers(n, out_dir, what, first: int = 0, coordinator=None, **kw):
+    """In-process volunteers ``first`` .. ``first + n - 1`` of one phase,
+    gpt2_small at full width, batch 8, blocking rounds on the bf16 wire,
+    bootstrapping from ``coordinator``, else from the first of them."""
+    import gc
+
+    from distributedvolunteercomputing_tpu_torch.swarm.volunteer import Volunteer, VolunteerConfig
+
+    gc.collect()  # the volunteers of earlier phases hold card memory until collected
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    vols, paths = [], []
+    for i in range(first, first + n):
+        paths.append(out_dir / f"{what}_volunteer{i}.jsonl")
+        paths[-1].unlink(missing_ok=True)
+        boot = coordinator or ("%s:%d" % vols[0].transport.addr if vols else None)
+        vols.append(Volunteer(VolunteerConfig(
+            model="gpt2_small", batch_size=8, wire="bf16", overlap=False, steps=PROTO_MAX_STEPS,
+            mesh_codec="mesh", gather_timeout=PROTO_GATHER_S, peer_id=f"{what}{i}", seed=i + 1,
+            metrics_path=str(paths[-1]), coordinator=boot, **kw,
+        )))
+        await vols[-1].start()
+    return vols, paths
+
+
+async def train_until(vols, recs, what: str):
+    """Train the phase's in-process volunteers, all starting together, until
+    every recorder is done, within ``PROTO_WAIT_S``; returns the summaries
+    and seconds."""
+
+    def stop_all():
+        for v in vols:
+            v._stop.set()
+
+    for r in recs:
+        r.stop_all = stop_all
+    cuda_sync()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    tasks = [asyncio.create_task(v.train()) for v in vols]
+    try:
+        summaries = await asyncio.wait_for(asyncio.gather(*tasks), PROTO_WAIT_S)
+    except asyncio.TimeoutError:
+        stop_all()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        calls = [[{k: c[k] for k in ("step", "ok", "size", "degraded", "outcomes")} for c in r.calls] for r in recs]
+        raise AssertionError(f"{what}: not done within {PROTO_WAIT_S} s: {calls}")
+    run_s = time.perf_counter() - t0
+    cuda_sync()
+    return summaries, run_s, proto_launches()
+
+
+def proto_launches() -> dict:
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+
+    return {**flash_launches(), **dict(mc.LAUNCHES)}
+
+
+def proto_checks(what, vols, summaries, paths, launches, failures) -> dict:
+    """Finite losses; K1-K3 launches 24 / 12 / 12 per step of this
+    process's volunteers; every codec op on the card."""
+    losses = [[r["loss"] for r in read_jsonl(p) if "loss" in r] for p in paths]
+    steps = sum(len(ls) for ls in losses)
+    expect_flash = {"flash_fwd": 24 * steps, "flash_dq": 12 * steps, "flash_dkv": 12 * steps}
+    codec = vols[0].averager.mesh_codec.stats()
+    if not all(losses) or not all(math.isfinite(x) for ls in losses for x in ls):
+        failures.append(f"{what}: missing or non-finite losses")
+    if {k: launches[k] for k in expect_flash} != expect_flash:
+        failures.append(f"{what}: K1-K3 launches {launches} != {expect_flash} for {steps} steps")
+    if codec["backend"] != "device" or codec["ops_host"] != 0 or codec["ops_mesh"] < 1:
+        failures.append(f"{what}: codec ops off the card: {codec}")
+    return {"steps_run": [len(ls) for ls in losses], "losses": losses,
+            "final_loss": [s["final_loss"] for s in summaries], "mesh_codec": codec}
+
+
+def k4_check(what, launches, k4_min, failures) -> None:
+    if launches["bf16_encode"] < k4_min:
+        failures.append(f"{what}: K4 launches {launches['bf16_encode']} < the {k4_min} its rounds imply")
+
+
+def gossip_phase() -> dict:
+    """Two full-width gossip volunteers in this process, params mode, the
+    step cadence every ``PROTO_EVERY`` steps: each publishes at its start,
+    then exchanges with the other at each averaging point. Each exchange's
+    mix is held against the weighted mean of the caller's buffer and the
+    partner's as the partner served it (recorded in its ``gossip.exchange``
+    handler)."""
+    import numpy as np
+
+    out_dir = HERE / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    served = [collections.OrderedDict(), collections.OrderedDict()]  # xid -> (weight, buffer) each served
+    pending = [None, None]  # (xid, (weight, buffer) before the mix) of the call's exchange
+    mixes = [collections.deque(maxlen=2), collections.deque(maxlen=2)]
+    exchanges = [0, 0]
+    failures = []
+
+    def instrument(vol, i):
+        avg, transport = vol.averager, vol.transport
+        handler, call = avg._rpc_exchange, transport.call
+
+        async def recording_handler(args, payload):
+            mine = avg._current  # what the handler serves: read before its first await
+            out = await handler(args, payload)
+            served[i][args.get("xid")] = mine
+            while len(served[i]) > 4:
+                served[i].popitem(last=False)
+            return out
+
+        async def recording_call(addr, method, args=None, *a, **kw):
+            before = avg._current
+            out = await call(addr, method, args, *a, **kw)
+            if method == "gossip.exchange":
+                pending[i] = (args["xid"], before)
+            return out
+
+        transport.register("gossip.exchange", recording_handler)
+        transport.call = recording_call
+        rec = ProtoRecorder(vol, keep=0)
+
+        def before():
+            pending[i] = None
+
+        def after(c, result):
+            if pending[i] is not None and result is not None:
+                xid, (pre_w, pre) = pending[i]
+                post_w, post = avg._current
+                exchanges[i] += 1
+                mixes[i].append({"xid": xid, "pre_w": pre_w, "pre": pre, "post_w": post_w, "post": post,
+                                 "step": c["step"], "s": c["s"]})
+
+        rec.before, rec.after = before, after
+        rec.done = lambda _r: min(exchanges) >= GOSSIP_MIXES
+        return rec
+
+    async def run():
+        vols, paths = await start_volunteers(2, out_dir, "gossip", averaging="gossip", average_every=PROTO_EVERY)
+        try:
+            recs = [instrument(v, i) for i, v in enumerate(vols)]
+            return (vols, paths, recs, *await train_until(vols, recs, "gossip"))
+        finally:
+            await asyncio.gather(*(v.stop() for v in vols))
+
+    vols, paths, recs, summaries, run_s, launches = asyncio.run(run())
+    row = {"phase": "gossip", "model": "gpt2_small", "batch_size": 8, "wire": "bf16", "average_every": PROTO_EVERY,
+           "gather_timeout": PROTO_GATHER_S,
+           "run_s": run_s, "exchanges_ok": exchanges, "rounds_ok": [s["rounds_ok"] for s in summaries],
+           "rounds_skipped": [s["rounds_skipped"] for s in summaries],
+           "mix_s": [[c["s"] for c in r.calls if c["ok"]] for r in recs], "launches": launches}
+    row.update(proto_checks("gossip", vols, summaries, paths, launches, failures))
+    if min(exchanges) < GOSSIP_MIXES:
+        failures.append(f"gossip: successful exchanges {exchanges} < {GOSSIP_MIXES} each")
+    # K4: each successful exchange encodes the caller's buffer and the reply.
+    k4_check("gossip", launches, 2 * sum(exchanges), failures)
+    values = []
+    for i, recent in enumerate(mixes):
+        for m in recent:
+            if served[1 - i].get(m["xid"]) is None:
+                failures.append(f"gossip: volunteer {i}'s exchange {m['xid']} not seen served")
+                continue
+            my_w, mine = served[1 - i][m["xid"]]
+            want = (m["pre_w"] * m["pre"].astype(np.float64) + my_w * mine) / (m["pre_w"] + my_w)
+            err = np.abs(m["post"] - want)
+            lim = proto_limit(PROTO_STAGES["gossip"], np.maximum(np.abs(m["pre"]), np.abs(mine)))
+            v = {"volunteer": i, "step": m["step"], "weights": [m["pre_w"], my_w], "post_weight": m["post_w"],
+                 "max_abs_err": float(err.max()), "limit_used": float((err / lim).max()),
+                 "finite": bool(np.isfinite(m["post"]).all())}
+            values.append(v)
+            if not (v["finite"] and v["limit_used"] <= 1.0 and m["post_w"] == m["pre_w"] + my_w):
+                failures.append(f"gossip: mix outside its tolerance: {v}")
+    if not values:
+        failures.append("gossip: no mix recorded with its partner's served half")
+    row["values"] = values
+    emit(row)
+    if failures:
+        raise AssertionError(f"gossip phase: {failures}")
+    return launches
+
+
+def butterfly_phase() -> dict:
+    """``BFLY_N`` full-width butterfly volunteers in this process on the
+    wall-clock cadence (``BFLY_INTERVAL_S``, ClockSync on), groups of all
+    four: every round runs both hypercube stages. The four results of a
+    round must be bit-equal and within ``PROTO_STAGES["butterfly"]`` bf16
+    roundings of the weighted mean of the four payloads."""
+    import numpy as np
+
+    out_dir = HERE / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    failures = []
+    stage_s = [[] for _ in range(BFLY_N)]  # per volunteer, per averaging call: seconds of each stage
+
+    def instrument(vol, i):
+        avg = vol.averager
+        roundtrip, mix = avg._wire_roundtrip, avg._mix
+        stages = []
+
+        def timed_roundtrip(buf):  # a stage starts with its round trip
+            stages.append([time.perf_counter(), None])
+            return roundtrip(buf)
+
+        def timed_mix(*a):  # and ends with its mix
+            out = mix(*a)
+            stages[-1][1] = time.perf_counter()
+            return out
+
+        avg._wire_roundtrip, avg._mix = timed_roundtrip, timed_mix
+        avg.stage_timeout = BFLY_STAGE_S
+        rec = ProtoRecorder(vol)
+        rec.before = stages.clear
+        rec.after = lambda c, r: stage_s[i].append([e - s if e else None for s, e in stages])
+        return rec
+
+    async def run():
+        vols, paths = await start_volunteers(
+            BFLY_N, out_dir, "butterfly", averaging="butterfly", average_interval_s=BFLY_INTERVAL_S,
+            min_group=BFLY_N, max_group=BFLY_N, join_timeout=4.0,
+        )
+        try:
+            recs = [instrument(v, i) for i, v in enumerate(vols)]
+            for r in recs:
+                r.done = lambda _r: min(len(x.full_rounds(BFLY_N, 2)) for x in recs) >= BFLY_ROUNDS
+            out = await train_until(vols, recs, "butterfly")
+            return (vols, paths, recs, *out, [v.clocksync.offset for v in vols])
+        finally:
+            await asyncio.gather(*(v.stop() for v in vols))
+
+    vols, paths, recs, summaries, run_s, launches, offsets = asyncio.run(run())
+    full = [r.full_rounds(BFLY_N, 2) for r in recs]
+    row = {"phase": "butterfly", "model": "gpt2_small", "batch_size": 8, "wire": "bf16", "volunteers": BFLY_N,
+           "average_interval_s": [v.cfg.average_interval_s for v in vols], "clock_offsets_s": offsets,
+           "gather_timeout": PROTO_GATHER_S, "stage_timeout": BFLY_STAGE_S,
+           "run_s": run_s, "rounds_ok": [s["rounds_ok"] for s in summaries],
+           "rounds_skipped": [s["rounds_skipped"] for s in summaries],
+           "rounds_degraded": [s["rounds_degraded"] for s in summaries],
+           "full_rounds": [len(f) for f in full], "round_s": [[c["s"] for c in f] for f in full],
+           "stage_s": stage_s, "launches": launches}
+    row.update(proto_checks("butterfly", vols, summaries, paths, launches, failures))
+    if min(len(f) for f in full) < BFLY_ROUNDS or any(v.clocksync is None for v in vols):
+        failures.append(f"butterfly: rounds with both stages mixed {row['full_rounds']} < {BFLY_ROUNDS} each")
+    # K4 per full round: each volunteer round-trips its buffer at each stage,
+    # and each pair's exchange encodes the caller's buffer and the reply.
+    k4_check("butterfly", launches, 2 * 2 * BFLY_N * min(len(f) for f in full), failures)
+    by_epoch = collections.defaultdict(dict)
+    for i, r in enumerate(recs):
+        for b in r.buffers:
+            by_epoch[b["epoch"]][i] = b
+    values = []
+    for epoch, got in by_epoch.items():
+        if len(got) < BFLY_N or any(b["degraded"] or b["size"] != BFLY_N for b in got.values()):
+            continue
+        bs = [got[i] for i in range(BFLY_N)]
+        ws = [b["weight"] for b in bs]
+        want = sum(w * b["payload"].astype(np.float64) for w, b in zip(ws, bs)) / sum(ws)
+        scale = np.max(np.stack([np.abs(b["payload"]) for b in bs]), axis=0)
+        err = np.abs(bs[0]["result"] - want)
+        v = {"epoch": epoch, "steps": [b["step"] for b in bs], "weights": ws,
+             "bit_equal": all(b["result"].tobytes() == bs[0]["result"].tobytes() for b in bs),
+             "max_abs_err": float(err.max()),
+             "limit_used": float((err / proto_limit(PROTO_STAGES["butterfly"], scale)).max()),
+             "finite": bool(np.isfinite(bs[0]["result"]).all())}
+        values.append(v)
+        if not (v["bit_equal"] and v["finite"] and v["limit_used"] <= 1.0):
+            failures.append(f"butterfly: round values: {v}")
+    if not values:
+        failures.append("butterfly: no full round with all four results recorded")
+    row["values"] = values
+    emit(row)
+    if failures:
+        raise AssertionError(f"butterfly phase: {failures}")
+    return launches
+
+
+def byzantine_phase() -> dict:
+    """Byzantine full-mesh rounds with the trimmed mean and the resilience
+    layer: two honest full-width volunteers in this process and an attacker,
+    a ``run_volunteer_torch.py`` process with ``DVC_CHAOS_CONTRIB_SCALE`` =
+    ``BYZ_SCALE`` (its real tree, scaled). Trim 1 of 3 is the coordinate
+    median, which the attacker cannot move outside the honest pair; each
+    honest policy must record rejections of the attacker, each report carry
+    the controller's state. The attacker must exit 0 on SIGTERM."""
+    import os
+    import signal
+
+    import numpy as np
+
+    out_dir = HERE / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    failures = []
+    attacker_id = "byzantineX"
+    att_metrics, att_log = out_dir / "byzantine_attacker.jsonl", out_dir / "byzantine_attacker.log"
+    att_metrics.unlink(missing_ok=True)
+    rejections = [collections.Counter(), collections.Counter()]
+    kw = dict(averaging="byzantine", method="trimmed_mean", resilience=True, average_every=PROTO_EVERY,
+              min_group=3, max_group=3)
+
+    def attacker_argv(addr):
+        return [sys.executable, str(HERE / "run_volunteer_torch.py"), "--model", "gpt2_small", "--batch-size", "8",
+                "--averaging", "byzantine", "--method", "trimmed_mean", "--resilience", "--wire", "bf16",
+                "--average-every", str(PROTO_EVERY), "--no-overlap", "--min-group", "3", "--max-group", "3",
+                "--gather-timeout", str(PROTO_GATHER_S),
+                "--mesh-codec", "mesh", "--coordinator", addr, "--peer-id", attacker_id, "--seed", "9",
+                "--steps", "100000", "--metrics", str(att_metrics)]
+
+    def instrument(vol, i):
+        policy = vol.resilience_policy
+        record = policy.record_rejection
+
+        def counted(peer):
+            rejections[i][peer] += 1
+            return record(peer)
+
+        policy.record_rejection = counted
+        return ProtoRecorder(vol)
+
+    async def run():
+        vols, paths = await start_volunteers(1, out_dir, "byzantine", **kw)
+        addr = "%s:%d" % vols[0].transport.addr
+        attacker = await asyncio.create_subprocess_exec(
+            *attacker_argv(addr), cwd=str(HERE), env={**os.environ, "DVC_CHAOS_CONTRIB_SCALE": BYZ_SCALE},
+            stdout=asyncio.subprocess.PIPE, stderr=open(att_log, "w"))
+        out = b""
+        try:
+            more, more_paths = await start_volunteers(1, out_dir, "byzantine", first=1, coordinator=addr, **kw)
+            vols += more
+            paths += more_paths
+            deadline = time.monotonic() + PROTO_WAIT_S
+            while not any(r.get("event") == "state_pull" for r in read_jsonl(att_metrics)):
+                if attacker.returncode is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"attacker not up (rc {attacker.returncode}): {att_log.read_text()[-3000:]}")
+                await asyncio.sleep(0.5)
+            recs = [instrument(v, i) for i, v in enumerate(vols)]
+            for r in recs:
+                r.done = lambda _r: min(len(x.full_rounds(3, 2)) for x in recs) >= BYZ_ROUNDS
+            summaries, run_s, launches = await train_until(vols, recs, "byzantine")
+            reports = [v._build_report() for v in vols]
+            policies = [v.resilience_policy.stats() for v in vols]
+        finally:
+            for v in vols:
+                v._stop.set()
+            if attacker.returncode is None:
+                attacker.send_signal(signal.SIGTERM)
+            await asyncio.gather(*(v.stop() for v in vols))
+            try:
+                out, _ = await asyncio.wait_for(attacker.communicate(), 180)
+            except asyncio.TimeoutError:
+                attacker.kill()
+                out, _ = await attacker.communicate()
+                failures.append("byzantine: the attacker did not exit within 180 s of SIGTERM")
+        done = [ln for ln in out.decode().splitlines() if ln.startswith("VOLUNTEER_DONE ")]
+        att = json.loads(done[-1].split(" ", 1)[1]) if done else None
+        return vols, paths, recs, summaries, run_s, launches, reports, policies, attacker.returncode, att
+
+    vols, paths, recs, summaries, run_s, launches, reports, policies, att_rc, att = asyncio.run(run())
+    full = [r.full_rounds(3, 2) for r in recs]
+    row = {"phase": "byzantine", "model": "gpt2_small", "batch_size": 8, "wire": "bf16", "method": "trimmed_mean",
+           "resilience": True, "average_every": PROTO_EVERY, "gather_timeout": PROTO_GATHER_S,
+           "attacker_scale": float(BYZ_SCALE), "run_s": run_s,
+           "rounds_ok": [s["rounds_ok"] for s in summaries], "rounds_skipped": [s["rounds_skipped"] for s in summaries],
+           "rounds_degraded": [s["rounds_degraded"] for s in summaries], "full_rounds": [len(f) for f in full],
+           "round_s": [[c["s"] for c in f] for f in full], "rejections": [dict(c) for c in rejections],
+           "policies": policies, "controller": [rep.get("controller") for rep in reports],
+           "attacker": {"rc": att_rc, **{k: (att or {}).get(k) for k in ("steps", "rounds_ok", "mesh_codec")}},
+           "launches": launches}
+    row.update(proto_checks("byzantine", vols, summaries, paths, launches, failures))
+    if min(len(f) for f in full) < BYZ_ROUNDS:
+        failures.append(f"byzantine: rounds all three fed {row['full_rounds']} < {BYZ_ROUNDS} on each honest volunteer")
+    if any(c[attacker_id] < 1 for c in rejections):
+        failures.append(f"byzantine: an honest policy recorded no rejection of the attacker: {row['rejections']}")
+    if any(not isinstance(rep.get("controller"), dict) for rep in reports):
+        failures.append("byzantine: a report lacks the controller's state")
+    if att_rc != 0 or att is None:
+        failures.append(f"byzantine: the attacker exited {att_rc} on SIGTERM: {att_log.read_text()[-3000:]}")
+    att_codec = (att or {}).get("mesh_codec") or {}
+    if att_codec.get("backend") != "device" or att_codec.get("ops_host") != 0 or not att_codec.get("ops_mesh"):
+        failures.append(f"byzantine: the attacker's codec ops off the card: {att_codec}")
+    # K4 per honest volunteer per round: the health probe's slice, one lazy
+    # encode per push to each of the two peers, and its own round trip.
+    k4_check("byzantine", launches, 4 * sum(len(f) for f in full), failures)
+    by_epoch = collections.defaultdict(dict)
+    for i, r in enumerate(recs):
+        for b in r.buffers:
+            if b["size"] == 3 and not b["degraded"] and not b["outcomes"].get("absent"):
+                by_epoch[b["epoch"]][i] = b
+    values = []
+    for epoch, got in by_epoch.items():
+        if len(got) < 2:
+            continue
+        x0, x1 = got[0]["payload"], got[1]["payload"]
+        widen = AVG_TOL["bf16_u"] * np.maximum(np.abs(x0), np.abs(x1)) + AVG_TOL["floor"]
+        lo, hi = np.minimum(x0, x1) - widen, np.maximum(x0, x1) + widen
+        for i in (0, 1):
+            res = got[i]["result"]
+            v = {"epoch": epoch, "volunteer": i, "step": got[i]["step"],
+                 "outside_max": float(np.maximum(lo - res, res - hi).max()), "finite": bool(np.isfinite(res).all()),
+                 "honest_results_bit_equal": got[0]["result"].tobytes() == got[1]["result"].tobytes()}
+            values.append(v)
+            # Both honest volunteers aggregate the same three wire-rounded
+            # contributions: a result left unchanged, or one that missed a
+            # contribution, differs from the other's.
+            if not (v["finite"] and v["outside_max"] <= 0.0 and v["honest_results_bit_equal"]):
+                failures.append(f"byzantine: honest result outside the honest pair or unlike the other's: {v}")
+    if not values:
+        failures.append("byzantine: no round with both honest results recorded")
+    row["values"] = values
+    emit(row)
+    if failures:
+        raise AssertionError(f"byzantine phase: {failures}")
+    return launches
+
 
 
 # ---------------------------------------------------------------------------
@@ -2048,6 +2591,10 @@ def main() -> int:
     ring_launches = averaging_phase(mesh=_mesh(devices), collective="ring", phase="ring_averaging")
     launches.update({k: ring_launches[k] for k in RING_KERNELS})
     life_launches = lifecycle_phase()
+    protocols = {"gossip": gossip_phase(), "butterfly": butterfly_phase(), "byzantine": byzantine_phase()}
+
+    def protocol_launches(kname):
+        return {phase: counts[kname] for phase, counts in protocols.items()}
 
     kernels = []
     for kname, (replaces, kid) in KERNELS.items():
@@ -2056,7 +2603,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "id": kid, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[kname], "launches_lifecycle": life_launches[kname],
-            "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
+            "launches_protocols": protocol_launches(kname), "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
             "ms_method": DEVICE_MS_METHOD, "ms_qkv_view": times["qkv"][kname]["ms"],
             "plain_ms": t[kname]["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": t[lib]["ms"], "library_ms_qkv_view": times["qkv"][lib]["ms"],
@@ -2067,7 +2614,7 @@ def main() -> int:
     kernels.append({
         "name": "bf16_encode", "id": "K4", "route": "cuda", "source": CODEC_SOURCE,
         "replaces": CODEC_KERNELS["bf16_encode"][0], "launches": launches["bf16_encode"],
-        "launches_lifecycle": life_launches["bf16_encode"],
+        "launches_lifecycle": life_launches["bf16_encode"], "launches_protocols": protocol_launches("bf16_encode"),
         "max_abs_err": codec["encode_max_abs_err"], "n": k4["n"], "ms": k4["ms"], "ms_method": k4["ms_method"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"], "library_call": k4["library_call"],

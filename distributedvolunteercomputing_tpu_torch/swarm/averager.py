@@ -1,8 +1,8 @@
 """GradientAverager family: the four WAN averaging modes of the reference.
 
-Ported so far: ``SyncAverager`` on the f32 and bf16 wires (``make_averager``);
-the other modes and wires, and the resilience/controller collaborators,
-raise at construction until their slices arrive.
+Ported: the four modes on the f32 and bf16 wires, with the resilience,
+failure-detector and controller collaborators; the other wires and the shard
+manager raise at construction until their slices arrive.
 
 Reference parity (BASELINE.json:5,7-11):
 - ``SyncAverager``      — "synchronous GradientAverager" (config 2)
@@ -220,10 +220,12 @@ class AveragerBase:
         controller=None,
         shard_manager=None,
     ):
-        _check_ported(
-            wire, resilience=resilience, failure_detector=failure_detector,
-            controller=controller, shard_manager=shard_manager,
-        )
+        # Not ported yet: the other wires and zone sharding. Accepting one
+        # and ignoring it would change the round silently.
+        if wire not in ("f32", "bf16"):
+            raise NotImplementedError(f"wire {wire!r} is not ported yet; ported: f32, bf16")
+        if shard_manager is not None:
+            raise NotImplementedError("shard_manager (zone sharding) is not ported yet: pass None")
         if wire not in ("f32", "bf16", "q8", "topk", "powersgd", "sign"):
             raise ValueError(f"unknown wire dtype {wire!r}")
         if wire == "sign":
@@ -3860,31 +3862,562 @@ class SyncAverager(AveragerBase):
             await asyncio.sleep(0.05)
 
 
+class GossipAverager(AveragerBase):
+    """Asynchronous pairwise gossip (config 3): no rounds, no barriers.
 
-# -- what this slice of the port carries ---------------------------------------
+    Caller mixes with one random live peer per averaging point; the
+    counterparty banks the caller's contribution in an inbox and folds it in
+    at ITS next averaging point. Every volunteer's params drift toward the
+    swarm mean without any global synchronization (Moshpit/PushSum genre).
+    """
 
-_NOT_PORTED_MODES = ("gossip", "butterfly", "byzantine")
+    mode = "gossip"
+
+    # Inbox entries are un-keyed (unlike sync's (peer, token) contributions),
+    # so without a dedup id a REPLAYED exchange frame — even an HMAC-valid
+    # one captured within the transport auth window — would inject the same
+    # stale vector repeatedly. Every exchange carries a fresh xid; seen xids
+    # are remembered (bounded by count and age) and duplicates rejected.
+    _XID_TTL_S = 600.0
+    _XID_CAP = 4096
+
+    def __init__(self, *a, seed: int = 0, **kw):
+        super().__init__(*a, **kw)
+        self._inbox: List[Tuple[float, np.ndarray]] = []
+        self._current: Optional[Tuple[float, np.ndarray]] = None
+        self._rng = random.Random(seed ^ hash(self.peer_id))
+        self._seen_xids: Dict[str, float] = {}
+        self.transport.register("gossip.exchange", self._rpc_exchange)
+
+    def publish(self, tree: Any, weight: float = 1.0) -> None:
+        """Make this peer's params available to exchanges BEFORE its own
+        first averaging point. Without this a peer busy compiling serves
+        every incoming exchange 'no params published yet' — under startup
+        skew two peers can each burn ALL their rounds against the other's
+        unpublished window and finish having never mixed (observed as an
+        e2e flake before this existed). The volunteer publishes its post-
+        state-sync snapshot right after joining (params mode only)."""
+        buf = self._pack(tree)
+        self._current = (weight, self._wire_roundtrip(buf))
+
+    def _xid_seen(self, xid: str) -> bool:
+        return xid in self._seen_xids
+
+    def _xid_record(self, xid: str) -> None:
+        now = time.monotonic()
+        if len(self._seen_xids) >= self._XID_CAP:
+            cutoff = now - self._XID_TTL_S
+            self._seen_xids = {k: t for k, t in self._seen_xids.items() if t >= cutoff}
+            while len(self._seen_xids) >= self._XID_CAP:  # still full: drop oldest
+                self._seen_xids.pop(min(self._seen_xids, key=self._seen_xids.get))
+        self._seen_xids[xid] = now
+
+    async def _rpc_exchange(self, args: dict, payload: bytes):
+        if not self._check_schema(args):
+            raise RPCError("schema mismatch")
+        xid = args.get("xid")
+        if not isinstance(xid, str) or not xid:
+            raise RPCError("missing exchange id")
+        if self._current is None:
+            raise RPCError("peer has no params published yet")
+        my_w, my_buf = self._current
+        if self._xid_seen(xid):
+            # A seen xid is either the transport's transparent retry of an
+            # exchange whose response was lost (the caller's vector IS
+            # banked — failing here would skew the mix it already entered),
+            # or a replayed frame. Both get the idempotent answer: serve
+            # our half WITHOUT banking, so the same vector can never enter
+            # the inbox twice no matter how often the frame is repeated.
+            return {"weight": my_w}, await self._encode_wire_stream(my_buf)
+        inbuf = await self._decode_payload(payload)
+        if inbuf.size != my_buf.size:
+            # Invalid exchanges never record their xid: a corrected retry
+            # under the same xid gets a fresh verdict, not a silent serve.
+            raise RPCError(f"buffer size {inbuf.size} != local {my_buf.size}")
+        if not self._xid_seen(xid):  # re-check: a twin ran during the decode
+            self._xid_record(xid)
+            if len(self._inbox) < self.MAX_PARKED_CONTRIBS:
+                self._inbox.append((float(args["weight"]), inbuf))
+            else:
+                # Inbox full (peer long between averaging points — e.g.
+                # still compiling after publish()): serve OUR half of the
+                # exchange but drop theirs, bounding banked param-sized
+                # buffers. Push-pull degrades to pull-only instead of
+                # growing without bound.
+                log.debug("gossip inbox full (%d); dropping incoming contribution",
+                          len(self._inbox))
+        # Lazy stream on the dense wires: the reply's chunks are encoded
+        # while the transport writes earlier ones, instead of a full encode
+        # before the first response byte moves.
+        return {"weight": my_w}, await self._encode_wire_stream(my_buf)
+
+    def _mix(self, w1, b1, w2, b2) -> Tuple[float, np.ndarray]:
+        total = w1 + w2
+        return total, (b1 * (w1 / total) + b2 * (w2 / total))
+
+    async def average(self, tree: Any, round_no: int, weight: float = 1.0) -> Optional[Any]:
+        inbox, self._inbox = self._inbox, []
+
+        def _fold():
+            buf = self._pack(tree)
+            w = weight
+            # 1. fold in whatever neighbours pushed since last time
+            for iw, ibuf in inbox:
+                if ibuf.size != buf.size:  # banked before our schema changed
+                    continue
+                w, buf = self._mix(w, buf, iw, ibuf)
+            return w, buf
+
+        # Payload-scale flatten + up to inbox-cap mixes: off the loop.
+        w, buf = await asyncio.to_thread(_fold)
+        self._current = (w, buf)
+        # 2. push-pull with one random live peer — same-namespace peers only.
+        # Gossip has no rendezvous key, so the namespace filter happens here:
+        # a namespaced averager requires the record's avg_ns (membership
+        # extra_info, volunteer.py) to match EXACTLY — "model/average_what",
+        # so a params-mode peer never mixes with a grads-mode one. A record's
+        # model field alone is NOT enough (it can't distinguish params from
+        # grads trees, which flatten to identical schemas).
+        # Gossip has no leader to pre-exclude stragglers for us, so partner
+        # SELECTION is where the suspicion signal lands: suspected peers
+        # (phi over threshold / policy miss streak) are filtered out of the
+        # candidate set — they keep receiving our published params via their
+        # own pulls, we just never block a round on them.
+        peers = await self.membership.alive_peers(
+            include_self=False,
+            exclude_suspected=self.failure_detector is not None,
+        )
+        targets = [
+            (pid, tuple(rec["addr"]))
+            for pid, rec in peers.items()
+            if "addr" in rec
+            and (not self.namespace or rec.get("avg_ns") == self.namespace)
+            and not (
+                self.resilience is not None
+                and self.resilience.should_preexclude(pid)
+            )
+        ]
+        mixed = bool(inbox)
+        await self._maybe_backoff()
+        if targets:
+            pid, addr = self._rng.choice(targets)
+            try:
+                t0 = time.monotonic()
+                ret, payload = await self.transport.call(
+                    addr,
+                    "gossip.exchange",
+                    {"peer": self.peer_id, "weight": w, "schema": self._schema,
+                     "xid": uuid.uuid4().hex},
+                    await self._encode_wire_stream(buf),
+                    # The round budget (policy-learned when attached) bounds
+                    # the exchange: a stalled partner costs seconds, and the
+                    # inbox fold above already banked everyone else's pushes.
+                    timeout=min(self._round_budget(), self.effective_gather_timeout),
+                    record_latency=False,  # bulk payload both ways
+                )
+                self._observe_round_time(time.monotonic() - t0)
+                rbuf = await self._decode_payload(payload)
+                if rbuf.size != buf.size:
+                    raise RPCError(f"peer buffer size {rbuf.size} != local {buf.size}")
+                w, buf = await asyncio.to_thread(
+                    self._mix, w, buf, float(ret["weight"]), rbuf
+                )
+                self._current = (w, buf)
+                mixed = True
+                self._last_outcomes = {"on_time": [pid]}
+                self._flush_round_outcome(time.monotonic() - t0, ok=True)
+            except (RPCError, OSError, ValueError, asyncio.TimeoutError) as e:
+                log.info("gossip with %s failed (%s)", pid, errstr(e))
+                self._observe_round_failure()
+                self._last_outcomes = {"absent": [pid]}
+                self._flush_round_outcome(time.monotonic() - t0, ok=False)
+        if not mixed:
+            self.rounds_skipped += 1
+            return None
+        self.rounds_ok += 1
+        return await asyncio.to_thread(self._unpack, buf)
 
 
-def _check_ported(wire: str, **collaborators: Any) -> None:
-    """Refuse, at construction, what the port does not carry yet: wires
-    other than f32/bf16 and the resilience, failure-detector, controller and
-    shard-manager collaborators (their modules or their volunteer wiring are
-    not ported). Accepting one and ignoring it would change the round
-    silently."""
-    if wire not in ("f32", "bf16"):
-        raise NotImplementedError(f"wire {wire!r} is not ported yet; ported: f32, bf16")
-    attached = sorted(name for name, obj in collaborators.items() if obj is not None)
-    if attached:
-        raise NotImplementedError(f"{', '.join(attached)} not ported yet: pass None")
+class ButterflyAverager(AveragerBase):
+    """Butterfly (hypercube) allreduce (config 4).
+
+    log2(n) pairwise stages; at stage s, peer i exchanges its running
+    weighted average with peer i XOR 2^s. Bandwidth is balanced (every peer
+    moves ~log n buffers — no leader hotspot), and heterogeneous/absent
+    partners cost ONE skipped stage, not the round: with a partial butterfly
+    each peer still holds the average of a 2^k subset, which contracts
+    variance every round (Moshpit SGD's argument, PAPERS.md:9).
+    """
+
+    mode = "butterfly"
+
+    def __init__(self, *a, stage_timeout: float = 8.0, **kw):
+        super().__init__(*a, **kw)
+        self.stage_timeout = stage_timeout
+        # (epoch, stage) -> {"ready": Event, "buf":, "w":, "done": Event, "in": (w, buf)}
+        self._stages: Dict[Tuple[str, int], dict] = {}
+        self.transport.register("bfly.exchange", self._rpc_exchange)
+
+    def _stage_state(self, epoch: str, stage: int, *, remote: bool = False) -> dict:
+        key = (epoch, stage)
+        if key not in self._stages:
+            if remote:
+                # Same asymmetry the byz path had in round 1: every (epoch,
+                # stage) a remote names allocates state AND pins the handler
+                # task for stage_timeout — and the local sweep only runs
+                # inside average(), which a peer that stops averaging never
+                # calls. Sweep on the RPC path and cap remotely-created
+                # entries (buf is None until the LOCAL peer reaches the
+                # stage, so "parked" is exactly that predicate), mirroring
+                # MAX_PARKED_ROUNDS on the gather paths.
+                self._sweep_stages()
+                parked = sum(1 for s in self._stages.values() if s["buf"] is None)
+                if parked >= self.MAX_PARKED_ROUNDS:
+                    raise RPCError("parked stage cap reached")
+            self._stages[key] = {
+                "ready": asyncio.Event(),
+                "done": asyncio.Event(),
+                "buf": None,
+                "w": None,
+                "in": None,
+                "t0": time.monotonic(),
+            }
+        return self._stages[key]
+
+    def _sweep_stages(self) -> None:
+        # A partner's exchange for a round we never joined leaves a stage
+        # entry behind after its handler times out — evict by age.
+        cutoff = time.monotonic() - (self.stage_timeout * 4 + 30.0)
+        for key in [k for k, st in self._stages.items() if st["t0"] < cutoff]:
+            del self._stages[key]
+
+    async def _rpc_exchange(self, args: dict, payload: bytes):
+        if not self._check_schema(args):
+            raise RPCError("schema mismatch")
+        st = self._stage_state(args["epoch"], int(args["stage"]), remote=True)
+        # Wait until the local peer reaches this stage (it may be behind).
+        await asyncio.wait_for(st["ready"].wait(), timeout=self.stage_timeout)
+        inbuf = await self._decode_payload(payload)
+        if inbuf.size != st["buf"].size:
+            raise RPCError(f"buffer size {inbuf.size} != local {st['buf'].size}")
+        st["in"] = (float(args["weight"]), inbuf)
+        st["done"].set()
+        return {"weight": st["w"]}, await self._encode_wire_stream(st["buf"])
+
+    @staticmethod
+    def _mix(w1: float, b1: np.ndarray, w2: float, b2: np.ndarray) -> Tuple[float, np.ndarray]:
+        total = w1 + w2
+        # Same expression on both sides of the pair -> bitwise-identical
+        # results (float + and * are commutative), so the pair stays in sync.
+        # With wire=bf16 this holds because average() round-trips the LOCAL
+        # buffer through the codec before mixing — each side mixes the same
+        # (quantized-mine, quantized-theirs) pair.
+        return total, (b1 * (w1 / total) + b2 * (w2 / total))
+
+    def _stage_wait(self, group: Group, stage: int, n_stages: int) -> float:
+        """Per-stage wait under the round deadline: the remaining budget is
+        split evenly over the stages still to run (a straggler at stage 0
+        must not eat the whole round's budget and starve stages 1..k), and
+        ``stage_timeout`` stays the per-stage ceiling."""
+        remaining = self._deadline_remaining(group)  # skew-guarded
+        if remaining is None:
+            return self.stage_timeout
+        stages_left = max(n_stages - stage, 1)
+        return float(min(self.stage_timeout, max(remaining / stages_left, 0.5)))
+
+    async def average(self, tree: Any, round_no: int, weight: float = 1.0) -> Optional[Any]:
+        self._sweep_stages()
+        await self._maybe_backoff()
+        round_key = await self._rendezvous()
+        group = await self._form_group(round_key)
+        if group is None:
+            self.rounds_skipped += 1
+            self._last_outcomes = None
+            self._note_group_round(None)
+            return None
+        # Round proper starts AFTER formation (same vantage as sync/byz):
+        # the policy's deadline estimate must learn exchange time, not
+        # matchmaking settle/join time.
+        t0 = time.monotonic()
+        buf = self._pack(tree)
+        w = float(weight)
+        n = group.size
+        n_stages = max((n - 1).bit_length(), 1)
+        mixed_any = False
+        missed_partners: List[str] = []
+        on_time_partners: List[str] = []
+        for s in range(n_stages):
+            partner_idx = group.my_index ^ (1 << s)
+            if partner_idx >= n:
+                continue
+            partner_id, partner_addr = group.members[partner_idx]
+            buf = await asyncio.to_thread(self._wire_roundtrip, buf)
+            st = self._stage_state(group.epoch, s)
+            st["buf"], st["w"] = buf, w
+            st["ready"].set()
+            stage_wait = self._stage_wait(group, s, n_stages)
+            try:
+                if group.my_index < partner_idx:
+                    ret, payload = await self.transport.call(
+                        partner_addr,
+                        "bfly.exchange",
+                        {
+                            "epoch": group.epoch,
+                            "stage": s,
+                            "peer": self.peer_id,
+                            "weight": w,
+                            "schema": self._schema,
+                        },
+                        await self._encode_wire_stream(buf),
+                        timeout=stage_wait,
+                        # Bulk payload, and the partner may legitimately
+                        # park until it reaches this stage.
+                        record_latency=False,
+                    )
+                    pw, pbuf = float(ret["weight"]), await self._decode_payload(payload)
+                else:
+                    await asyncio.wait_for(st["done"].wait(), timeout=stage_wait)
+                    pw, pbuf = st["in"]
+                if pbuf.size != buf.size:
+                    raise RPCError(f"partner buffer size {pbuf.size} != local {buf.size}")
+                w, buf = await asyncio.to_thread(self._mix, w, buf, pw, pbuf)
+                mixed_any = True
+                on_time_partners.append(partner_id)
+            except (RPCError, OSError, ValueError, asyncio.TimeoutError) as e:
+                log.info(
+                    "butterfly round %d stage %d with %s failed (%s); skipping stage",
+                    round_no, s, partner_id, errstr(e),
+                )
+                missed_partners.append(partner_id)
+            finally:
+                self._stages.pop((group.epoch, s), None)
+        self._round_degraded = bool(missed_partners) and mixed_any
+        self._last_outcomes = {
+            "on_time": on_time_partners,
+            "absent": missed_partners,
+        }
+        if not mixed_any:
+            self.rounds_skipped += 1
+            self._flush_round_outcome(time.monotonic() - t0, ok=False)
+            self._note_group_round(False, size=group.size)
+            return None
+        self.rounds_ok += 1
+        if self._round_degraded:
+            self.rounds_degraded += 1
+        self._flush_round_outcome(time.monotonic() - t0, ok=True)
+        self._note_group_round(
+            True, degraded=self._round_degraded, size=group.size
+        )
+        return await asyncio.to_thread(self._unpack, buf)
 
 
-AVERAGERS = {"sync": SyncAverager}
+class ByzantineAverager(AveragerBase):
+    """Full-mesh robust aggregation (config 5): no trusted leader.
+
+    Every member pushes its contribution to every other member; each member
+    independently applies the robust estimator (trimmed mean by default;
+    median/krum/geometric_median via ``method=``) to whatever arrived by the
+    deadline. A Byzantine peer can send garbage — the estimator bounds its
+    influence — and, unlike leader-gather, no single peer computes the
+    aggregate for others. Identity limits without a PKI: a contribution can
+    never claim the receiver's own id and can never overwrite an
+    already-received entry (first write wins), so impersonating an honest
+    peer requires beating its first push in a race, per round, per receiver.
+    """
+
+    mode = "byzantine"
+
+    def __init__(self, *a, **kw):
+        kw.setdefault("method", "trimmed_mean")
+        super().__init__(*a, **kw)
+        self._rounds: Dict[str, _Round] = {}
+        self.transport.register("byz.contribute", self._rpc_contribute)
+
+    async def _rpc_contribute(self, args: dict, payload: bytes):
+        if not self._check_schema(args):
+            raise RPCError("schema mismatch")
+        peer = args["peer"]
+        # A remote push may never claim OUR identity, and may never REPLACE a
+        # contribution that already arrived (first write wins): with no PKI on
+        # the WAN an attacker can still race an honest peer's first push, but
+        # it cannot overwrite the honest value afterwards — and the robust
+        # estimator bounds whatever single rows it does land.
+        if peer == self.peer_id:
+            raise RPCError("contribution claims receiver's own identity")
+        # Contribution can arrive before we enter the round: park it
+        # (swept + capped against fabricated-epoch flooding).
+        st = self._get_or_park_round(self._rounds, args["epoch"])
+        if st.expected and peer not in st.expected:
+            # Round membership is known: reject outsiders outright instead of
+            # parking them (they'd be dropped at aggregation anyway).
+            raise RPCError("peer is not a member of this round")
+        if peer in st.contribs:
+            raise RPCError("duplicate contribution for peer (first write wins)")
+        if not st.expected and len(st.contribs) >= self.MAX_PARKED_CONTRIBS:
+            raise RPCError("round contribution cap reached")
+        buf = await self._decode_payload(payload)
+        # Re-check after the await: first write wins, so a contribution that
+        # landed while we decoded keeps its slot and THIS one is the forgery
+        # (or a pointless retry) — refuse rather than overwrite.
+        if peer in st.contribs:
+            raise RPCError("duplicate contribution for peer (first write wins)")
+        if not st.expected and len(st.contribs) >= self.MAX_PARKED_CONTRIBS:
+            raise RPCError("round contribution cap reached")
+        st.contribs[peer] = (float(args["weight"]), buf)
+        if buf is None:
+            # Pre-schema powersgd push: park the raw payload for
+            # _decode_deferred (decode amplification is the attack here;
+            # raw bytes cost the sender its own bandwidth).
+            st.payloads[peer] = payload
+        if st.expected and set(st.contribs) >= st.expected:
+            st.full.set()
+        return {"ok": True}, b""
+
+    async def average(self, tree: Any, round_no: int, weight: float = 1.0) -> Optional[Any]:
+        self._sweep_rounds(self._rounds)
+        # Same fencing contract as the sync path: staged controller
+        # decisions (regime -> hedge floor, wire, cadence when a schedule
+        # is attached) promote HERE, before this round's rendezvous.
+        self._apply_controller()
+        await self._maybe_backoff()
+        round_key = await self._rendezvous()
+        group = await self._form_group(round_key)
+        if group is None:
+            self.rounds_skipped += 1
+            self._last_outcomes = None
+            self._note_group_round(None)
+            return None
+        buf, wire_bytes, sent = await self._pack_and_compress(tree)
+        st = self._rounds.get(group.epoch)
+        if st is None:
+            st = self._rounds[group.epoch] = _Round([])
+        st.expected = set(pid for pid, _ in group.members)
+        st.contribs[self.peer_id] = (weight, await asyncio.to_thread(sent))
+        if set(st.contribs) >= st.expected:
+            st.full.set()
+
+        args = {
+            "epoch": group.epoch,
+            "peer": self.peer_id,
+            "weight": weight,
+            "schema": self._schema,
+        }
+
+        async def push(addr):
+            try:
+                await self.transport.call(
+                    addr, "byz.contribute", args, wire_bytes,
+                    timeout=self._deadline_wait(group, floor=1.0),
+                    record_latency=False,  # bulk payload leg
+                )
+            except (RPCError, OSError, ValueError, asyncio.TimeoutError) as e:
+                log.info("byz push to %s failed: %s", addr, errstr(e))
+
+        t0 = time.monotonic()
+        degraded = False
+        await asyncio.gather(
+            *(push(addr) for pid, addr in group.members if pid != self.peer_id)
+        )
+        try:
+            # Every member closes its gather at the SAME consensus-clock
+            # deadline (the full-mesh twin of the sync leader's commit).
+            await asyncio.wait_for(
+                st.full.wait(), timeout=self._deadline_wait(group)
+            )
+        except asyncio.TimeoutError:
+            degraded = True  # deadline commit: aggregate the arrived subset
+        # Resolve pre-schema-parked powersgd payloads (exact-size-capped now
+        # that our own pack fixed the specs).
+        await self._decode_deferred(st)
+        received = {
+            p: c
+            for p, c in st.contribs.items()
+            # c[1] None: unresolved deferred entry (see _leader_round note).
+            if p in st.expected and c[1] is not None and c[1].size == buf.size
+        }
+        self._rounds.pop(group.epoch, None)
+        excluded = sorted(
+            p for p in st.expected if p not in received and p != self.peer_id
+        )
+        self._round_degraded = degraded
+        self._last_outcomes = {
+            "on_time": [p for p in sorted(received) if p != self.peer_id],
+            "absent": excluded,
+        }
+        if len(received) < self.min_group:
+            self.rounds_skipped += 1
+            self._observe_round_failure()
+            self._commit_ef(False)
+            self._flush_round_outcome(time.monotonic() - t0, ok=False)
+            self._note_group_round(False, size=group.size)
+            return None
+        self._commit_ef(True)
+        if excluded:
+            log.info(
+                "byzantine round committed at deadline without %s (%d/%d)",
+                excluded, len(received), len(st.expected),
+            )
+        peers = sorted(received)
+        method, kw = self._effective_method(len(peers))
+        if method == "mean":
+            kw["weights"] = np.array([received[p][0] for p in peers])
+        self.rounds_ok += 1
+        if degraded:
+            self.rounds_degraded += 1
+        else:
+            self._observe_round_time(time.monotonic() - t0)
+        stack = np.stack([received[p][1] for p in peers])
+
+        def _aggregate_and_flag():
+            out = self.mesh_codec.aggregate(stack, method, **kw)
+            qmap: Dict[str, float] = {}
+            if method != "mean" and len(peers) >= 3:
+                # Estimator-rejection feedback for the policy: rows far from
+                # the robust aggregate (>3x the median row DISTANCE) were
+                # effectively voted out — Chameleon's observed-failure
+                # signal for escalating/keeping the estimator. The median
+                # is taken in distance space (even group sizes average two
+                # middle values, so median(d²) would be a strictly looser
+                # bar than median(d)²); the squared distances double as
+                # the contribution-quality votes.
+                d2 = health_mod.row_d2(stack, out)
+                qmap = {peers[i]: float(d2[i]) for i in range(len(peers))}
+                med2 = float(np.median(np.sqrt(d2))) ** 2
+                if med2 > 0:
+                    return out, [
+                        peers[i] for i in np.nonzero(d2 > 9.0 * med2)[0]
+                        if peers[i] != self.peer_id
+                    ], qmap
+            return out, [], qmap
+
+        agg, outliers, qmap = await asyncio.to_thread(_aggregate_and_flag)
+        if outliers and self.resilience is not None:
+            for p in outliers:
+                self.resilience.record_rejection(p)
+        if self.health is not None and self.health.enabled:
+            # Full-mesh vantage: every member attributes quality and mass
+            # independently (no trusted leader — that is the point).
+            await asyncio.to_thread(
+                self._health_note_commit, agg, group.epoch,
+                health_mod.mass_from_outcomes(
+                    st.expected, {p: float(received[p][0]) for p in received}
+                ),
+                qmap or None,
+            )
+        self._flush_round_outcome(time.monotonic() - t0, ok=True)
+        self._note_group_round(True, degraded=degraded, size=group.size)
+        return await asyncio.to_thread(lambda: self._unpack(agg))
+
+
+AVERAGERS = {
+    "sync": SyncAverager,
+    "gossip": GossipAverager,
+    "butterfly": ButterflyAverager,
+    "byzantine": ByzantineAverager,
+}
 
 
 def make_averager(mode: str, transport, dht, membership, **kw) -> AveragerBase:
-    if mode in _NOT_PORTED_MODES:
-        raise NotImplementedError(f"{mode} averaging is not ported yet; ported: {sorted(AVERAGERS)}")
     if mode not in AVERAGERS:
         raise KeyError(f"unknown averaging mode {mode!r}; known: {sorted(AVERAGERS)}")
     return AVERAGERS[mode](transport, dht, membership, **kw)

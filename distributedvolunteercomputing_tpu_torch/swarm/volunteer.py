@@ -12,33 +12,45 @@ after its current step, saves a final checkpoint, leaves and exits.
 
 ``start`` follows the reference's order: transport, the local metrics
 endpoint (``metrics_port``), the DHT joined through the coordinator(s), the
-control-plane client (and a replica when ``host_replica``), membership with
-the report beat, the averager, then the codec on this volunteer's device or
-its mesh's ranks (``mesh_codec.configure``: the bf16 encode and the
-leader's fold run as CUDA kernels on the card; with two or more ranks and
-``mesh_collective`` "ring" or "auto" the fold is the ring, K6/K7), the
-trainer with the checkpoint cadence, the restore of the newest checkpoint,
-the state-sync pull from the freshest peer ahead and the announce, the
-watchdog's probes, and the report loop.
+control-plane client (and a replica when ``host_replica``), the resilience
+layer (``resilience``: the phi-accrual detector, the policy and, with
+``adapt``, the controller), membership with the report beat, the clock
+sync under the wall-clock cadence, the averager, then the codec on this
+volunteer's device or its mesh's ranks (``mesh_codec.configure``: the bf16
+encode and the leader's fold run as CUDA kernels on the card; with two or
+more ranks and ``mesh_collective`` "ring" or "auto" the fold is the ring,
+K6/K7), the trainer with the checkpoint cadence, the restore of the newest
+checkpoint, the state-sync pull from the freshest peer ahead and the
+announce (and, in gossip, the first publish), the watchdog's probes, and
+the report loop.
 
-Ported so far: ``averaging`` "none" or "sync" on the f32 or bf16 wire, the
-step cadence, blocking or overlapped rounds, a local data-parallel mesh,
-the coordinator and control plane, checkpoints and state sync. The
-resilience layer and controller, the wall-clock cadence, gradient
-averaging, the other wires and averaging modes, chaos hooks, group
-schedules and sharding come with later slices; ``VolunteerConfig`` raises
-``NotImplementedError`` when one of them is set away from its default.
+Ported so far: every averaging mode (sync, gossip, butterfly, byzantine)
+on the f32 or bf16 wire, the step and wall-clock cadences, blocking or
+overlapped rounds, the robust estimators, the resilience layer and
+controller, a local data-parallel mesh, the coordinator and control plane,
+checkpoints, state sync and the reference's fault-injection hooks (read
+from the environment, test-only): ``DVC_CHAOS_CONTRIB_SCALE=<x>``
+contributes the real tree scaled by x; ``DVC_STEP_DELAY_MS=<ms>`` sleeps
+that long after each step; ``DVC_CHAOS_STATE_POISON=<lie>,<scale>`` serves
+state sync at step + lie with the tree scaled; ``DVC_CLOCK_SKEW_S=<s>``
+skews the local clock under the wall-clock cadence. Gradient averaging,
+the other wires, group schedules and sharding come with later slices;
+``VolunteerConfig`` raises ``NotImplementedError`` when one of them is set
+away from its default.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import os
 import signal
 import threading
 import time
 import uuid
 from typing import Any, Dict, Optional, Union
+
+import numpy as np
 
 from distributedvolunteercomputing_tpu_torch.models import get_model
 from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mesh_codec_mod
@@ -51,15 +63,20 @@ from distributedvolunteercomputing_tpu_torch.swarm.telemetry import Telemetry
 from distributedvolunteercomputing_tpu_torch.swarm.transport import Transport, read_secret
 from distributedvolunteercomputing_tpu_torch.training.trainer import Trainer
 from distributedvolunteercomputing_tpu_torch.utils.logging import errstr, get_logger
+from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_map
 from distributedvolunteercomputing_tpu_torch.utils.torchenv import DeviceLike
 
 log = get_logger(__name__)
 
 PORTED = (
-    "averaging none|sync, wire f32|bf16, the step cadence, overlap, a dp mesh, "
-    "the coordinator and control plane, checkpoints, state sync, telemetry, "
+    "averaging none|sync|gossip|butterfly|byzantine, wire f32|bf16, the step and "
+    "wall-clock cadences, overlap, robust methods, the resilience layer and controller, "
+    "a dp mesh, the coordinator and control plane, checkpoints, state sync, telemetry, "
     "health probe and watchdog"
 )
+
+# The wall-clock cadence AUTO resolves to for butterfly params-mode swarms.
+DEFAULT_BUTTERFLY_INTERVAL_S = 20.0
 
 # The reference's options that later slices carry: field -> (default, what).
 # Set away from its default, each raises NotImplementedError.
@@ -78,11 +95,6 @@ LATER_SLICES: Dict[str, tuple] = {
     "data_path": (None, ".npz data"),
     "eval_every": (0, "evaluation"),
     "eval_batches": (4, "evaluation"),
-    "method": ("mean", "robust estimators (byzantine averaging)"),
-    "method_kw": (None, "robust estimators (byzantine averaging)"),
-    "resilience": (False, "the resilience layer"),
-    "phi_threshold": (8.0, "the resilience layer"),
-    "adapt": (True, "the controller (the resilience layer)"),
     "outer_optimizer": ("none", "the outer optimizer"),
     "outer_lr": (0.7, "the outer optimizer"),
     "outer_momentum": (0.9, "the outer optimizer"),
@@ -106,10 +118,11 @@ class VolunteerConfig:
     port: int = 0
     advertise_host: Optional[str] = None  # dialable address when binding 0.0.0.0
     peer_id: str = ""
-    averaging: str = "none"  # none | sync
+    averaging: str = "none"  # none | sync | gossip | butterfly | byzantine
     average_every: int = 10
-    # Wall-clock cadence: None = AUTO, which resolves to the step cadence
-    # (0) for every ported mode; a positive value is a later slice.
+    # Wall-clock cadence in seconds (0 = the step cadence above): rounds
+    # fire when the consensus clock crosses a multiple of it. None = AUTO:
+    # DEFAULT_BUTTERFLY_INTERVAL_S for butterfly params mode, else 0.
     average_interval_s: Optional[float] = None
     average_what: str = "params"
     # Overlap rounds with local steps (the reference's default, on).
@@ -146,12 +159,17 @@ class VolunteerConfig:
     heartbeat_ttl: float = 15.0
     join_timeout: float = 10.0
     gather_timeout: float = 20.0
-    method: str = "mean"
+    method: str = "mean"  # robust estimator of byzantine rounds
+    # Estimator keyword overrides passed through to ops/robust.aggregate.
     method_kw: Optional[Dict[str, Any]] = None
     # Adaptive round deadlines (EWMA of successful rounds; see AveragerBase).
     adaptive_timeout: bool = False
+    # The phi-accrual detector (straggler pre-exclusion) and the adaptive
+    # policy (learned deadlines, backoff, estimator escalation).
     resilience: bool = False
-    phi_threshold: float = 8.0
+    phi_threshold: float = 8.0  # phi at which a peer counts as suspected
+    # The closed-loop controller over the policy (sync and byzantine, with
+    # ``resilience``).
     adapt: bool = True
     # Static wall-clock budget per averaging round, seconds (0 = the gather
     # timeout): the leader stamps clock()+budget into the round begin.
@@ -196,21 +214,24 @@ class VolunteerConfig:
     def __post_init__(self):
         if not self.peer_id:
             self.peer_id = f"vol-{uuid.uuid4().hex[:8]}"
-        if self.averaging in ("gossip", "butterfly", "byzantine"):
-            raise NotImplementedError(f"averaging {self.averaging!r} is not ported yet; ported: {PORTED}")
-        if self.averaging not in ("none", "sync"):
+        if self.averaging not in ("none", "sync", "gossip", "butterfly", "byzantine"):
             raise ValueError(f"unknown averaging {self.averaging!r}")
         if self.wire not in ("f32", "bf16"):
             raise NotImplementedError(f"wire {self.wire!r} is not ported yet; ported: {PORTED}")
         if self.average_interval_s is None:
-            self.average_interval_s = 0.0  # the reference's AUTO for every ported mode
+            # AUTO: butterfly is the heterogeneous-swarm config, where the
+            # step cadence parks fast peers; every other mode keeps it.
+            self.average_interval_s = (
+                DEFAULT_BUTTERFLY_INTERVAL_S
+                if self.averaging == "butterfly" and self.average_what == "params"
+                else 0.0
+            )
         if self.average_interval_s < 0:
             raise ValueError(f"average_interval_s must be >= 0, got {self.average_interval_s}")
-        if self.average_interval_s > 0:
-            raise NotImplementedError(
-                f"average_interval_s={self.average_interval_s} (the wall-clock cadence) is not ported yet; "
-                f"ported: {PORTED}"
-            )
+        if self.average_interval_s > 0 and self.averaging == "none":
+            raise ValueError("--average-interval-s requires an averaging mode")
+        if self.phi_threshold <= 0:
+            raise ValueError(f"phi_threshold must be > 0, got {self.phi_threshold}")
         for name, (default, what) in LATER_SLICES.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -230,6 +251,22 @@ class VolunteerConfig:
             raise ValueError(f"unknown mesh codec {self.mesh_codec!r}")
         if self.mesh_collective not in ("auto", "ring", "off"):
             raise ValueError(f"unknown mesh collective {self.mesh_collective!r}")
+        # An unknown method or keyword would raise inside every round and be
+        # swallowed there, leaving the volunteer training alone: fail here.
+        from distributedvolunteercomputing_tpu_torch.ops import robust
+
+        if self.method not in robust.AGGREGATORS:
+            raise ValueError(f"unknown --method {self.method!r}; known: {sorted(robust.AGGREGATORS)}")
+        if self.method_kw:
+            import inspect
+
+            allowed = set(inspect.signature(robust.AGGREGATORS[self.method]).parameters) - {"stack", "weights"}
+            unknown = set(self.method_kw) - allowed
+            if unknown:
+                raise ValueError(
+                    f"--method-kw keys {sorted(unknown)} are not accepted by method {self.method!r} "
+                    f"(accepts: {sorted(allowed)})"
+                )
 
 
 def _parse_addrs(spec: Optional[str]) -> list:
@@ -275,6 +312,10 @@ class Volunteer:
         self.membership: Optional[SwarmMembership] = None
         self.control_plane = None  # ControlPlaneClient (failover routing)
         self.replica = None  # ControlPlaneReplica when host_replica
+        self.clocksync = None  # ClockSync under the wall-clock cadence
+        self.failure_detector = None
+        self.resilience_policy = None
+        self.controller = None
         self.averager = None
         self.state_sync: Optional[StateSyncService] = None
         self.trainer: Optional[Trainer] = None
@@ -288,9 +329,16 @@ class Volunteer:
     def _averager_callback(self, params, step: int):
         if self.averager is None or self._stop.is_set():
             return None
+        # Fault injection (test-only): DVC_CHAOS_CONTRIB_SCALE=<x> makes this
+        # volunteer Byzantine, contributing its real tree scaled by x
+        # (well-formed frames, wrong values).
+        chaos_scale = float(os.environ.get("DVC_CHAOS_CONTRIB_SCALE", "0") or 0.0)
+        if chaos_scale:
+            params = tree_map(lambda x: np.asarray(x, np.float32) * chaos_scale, params)
         # Weight = samples behind this contribution: the trainer's actual
-        # steps since the last merge (average_every on the happy path, more
-        # after failed rounds).
+        # steps since the last merge (average_every on the happy step-cadence
+        # path, more after failed rounds, the window's progress under the
+        # wall-clock cadence).
         per_round = max(1, getattr(self.trainer, "steps_since_merge", self.cfg.average_every))
         samples_since = self.cfg.batch_size * per_round
         fut = asyncio.run_coroutine_threadsafe(
@@ -336,9 +384,13 @@ class Volunteer:
         if cfg.host_replica:
             self.replica = ControlPlaneReplica(self.transport, self.dht, telemetry=self.telemetry)
             await self.replica.start()
+        # Before membership, so the first peer records seen start the
+        # heartbeat distributions.
+        self._build_resilience_layer()
         namespace = f"{cfg.model}/{cfg.average_what}"
         self.membership = SwarmMembership(
             self.dht, cfg.peer_id, ttl=cfg.heartbeat_ttl,
+            failure_detector=self.failure_detector,
             extra_info={"model": cfg.model, "avg_ns": namespace},
             bandwidth_source=self.transport.bandwidth_advertisement,
             # Announce + report + peers snapshot coalesce into one
@@ -348,17 +400,38 @@ class Volunteer:
             telemetry=self.telemetry,
         )
         await self.membership.join()
+        if cfg.average_interval_s > 0:
+            # The wall-clock cadence's boundaries are on swarm-consensus time
+            # (swarm/clocksync.py). DVC_CLOCK_SKEW_S (test-only) skews the
+            # local clock.
+            from distributedvolunteercomputing_tpu_torch.swarm.clocksync import ClockSync
+
+            skew = float(os.environ.get("DVC_CLOCK_SKEW_S", "0") or "0")
+            clock = (lambda: time.time() + skew) if skew else time.time
+            self.clocksync = ClockSync(self.transport, self.membership, clock=clock)
+            # The first boundary this volunteer arms is already on swarm time.
+            await self.clocksync.estimate()
+            self.clocksync.start(interval_s=max(cfg.heartbeat_ttl, 15.0))
+            self.telemetry.set_clock(self.clocksync.now)
         if cfg.averaging != "none":
-            self.averager = make_averager(
-                cfg.averaging, self.transport, self.dht, self.membership,
+            kw = dict(
                 min_group=cfg.min_group, max_group=cfg.max_group,
                 join_timeout=cfg.join_timeout, gather_timeout=cfg.gather_timeout,
                 wire=cfg.wire, adaptive_timeout=cfg.adaptive_timeout,
+                # Round deadlines on the consensus clock when there is one.
+                clock=self.clocksync.now if self.clocksync is not None else None,
                 round_deadline_s=cfg.round_deadline_s or None,
+                resilience=self.resilience_policy, failure_detector=self.failure_detector,
+                controller=self.controller,
                 control_plane=self.control_plane, telemetry=self.telemetry,
                 hedge=cfg.hedge, tail_redundancy_frac=cfg.tail_redundancy_frac,
                 namespace=namespace,
             )
+            if cfg.averaging == "byzantine" and cfg.method != "mean":
+                kw["method"] = cfg.method
+            if cfg.method_kw:
+                kw["method_kw"] = dict(cfg.method_kw)
+            self.averager = make_averager(cfg.averaging, self.transport, self.dht, self.membership, **kw)
         bundle = get_model(cfg.model, **cfg.model_overrides)
         on_step = None
         if cfg.checkpoint_dir and cfg.checkpoint_every > 0:
@@ -371,6 +444,17 @@ class Volunteer:
                 # a background thread.
                 if step_no % every == 0:
                     save_async(trainer, ckpt_dir)
+
+        # Heterogeneity injection (test-only): DVC_STEP_DELAY_MS=<x> slows
+        # this volunteer by x ms per step.
+        delay_ms = float(os.environ.get("DVC_STEP_DELAY_MS", "0") or 0.0)
+        if delay_ms > 0:
+            prev_on_step = on_step
+
+            def on_step(trainer, step_no, _prev=prev_on_step):  # noqa: F811
+                time.sleep(delay_ms / 1e3)
+                if _prev is not None:
+                    _prev(trainer, step_no)
 
         mesh = cfg.mesh if isinstance(cfg.mesh, Mesh) else make_mesh(**parse_mesh_spec(cfg.mesh)) if cfg.mesh else None
         # The averager resolves the process default lazily, so configuring
@@ -401,6 +485,8 @@ class Volunteer:
             mesh=mesh,
             averager=self._averager_callback if self.averager is not None else None,
             average_every=cfg.average_every,
+            average_interval_s=cfg.average_interval_s,
+            wall_clock=self.clocksync.now if self.clocksync is not None else None,
             overlap=cfg.overlap,
             max_staleness=cfg.max_staleness,
             on_step=on_step,
@@ -452,7 +538,16 @@ class Volunteer:
 
         def provider():
             step, params = self.trainer.host_snapshot()
-            return step, bundle.avg_select(params)
+            tree = bundle.avg_select(params)
+            # Fault injection (test-only): DVC_CHAOS_STATE_POISON="lie,scale"
+            # makes this volunteer a Byzantine state provider: it serves step
+            # + lie (pulls go to the freshest provider) and its tree scaled.
+            poison = os.environ.get("DVC_CHAOS_STATE_POISON")
+            if poison:
+                lie, scale = (float(x) for x in poison.split(","))
+                tree = tree_map(lambda a: np.asarray(a, np.float32) * scale, tree)
+                step = int(step + lie)
+            return step, tree
 
         self.state_sync.set_provider(provider)
         step0 = int(self.trainer.state.step)
@@ -469,6 +564,41 @@ class Volunteer:
              "bytes": self.transport.bytes_received - received0},
         )
         await self.state_sync.announce()
+        if cfg.averaging == "gossip" and cfg.average_what == "params":
+            # Publish before the first averaging point, so exchanges from
+            # faster peers succeed while this one is still starting.
+            _, snap = self.trainer.host_snapshot()
+            self.averager.publish(bundle.avg_select(snap))
+
+    def _build_resilience_layer(self) -> None:
+        """The phi-accrual detector and the adaptive policy and, with
+        ``adapt`` in sync or byzantine mode, the closed-loop controller
+        over them. No-op without ``resilience``."""
+        cfg = self.cfg
+        if not cfg.resilience:
+            return
+        from distributedvolunteercomputing_tpu_torch.swarm.failure_detector import PhiAccrualDetector
+        from distributedvolunteercomputing_tpu_torch.swarm.resilience import ResiliencePolicy
+
+        self.failure_detector = PhiAccrualDetector(
+            threshold=cfg.phi_threshold,
+            # Heartbeats arrive at the announce cadence (ttl/3).
+            bootstrap_s=max(cfg.heartbeat_ttl / 3.0, 1.0),
+        )
+        self.resilience_policy = ResiliencePolicy(
+            max_deadline_s=cfg.gather_timeout,
+            # A gather timeout under the stock 2 s floor must not trip the
+            # policy's range check.
+            min_deadline_s=min(2.0, float(cfg.gather_timeout)),
+            initial_deadline_s=cfg.round_deadline_s or None,
+            failure_detector=self.failure_detector,
+            recorder=self.telemetry.recorder,
+        )
+        if cfg.adapt and cfg.averaging in ("sync", "byzantine"):
+            # Gossip has no rounds to fence a decision against.
+            from distributedvolunteercomputing_tpu_torch.swarm.controller import SwarmController
+
+            self.controller = SwarmController(policy=self.resilience_policy, telemetry=self.telemetry)
 
     def _build_report(self) -> dict:
         """This volunteer's metrics report (the coord.report payload),
@@ -497,6 +627,9 @@ class Volunteer:
             summary = wd.summary()
             if summary is not None:
                 report["watchdog"] = summary
+        if self.controller is not None:
+            # The controller's rollup; absent without it.
+            report["controller"] = self.controller.summary()
         health = self.telemetry.health.summary()
         if health is not None:
             report["health"] = health
@@ -594,6 +727,8 @@ class Volunteer:
         self._stop.set()
         if self._report_task is not None:
             self._report_task.cancel()
+        if self.clocksync is not None:
+            self.clocksync.stop()
         if self.membership is not None:
             try:
                 await self.membership.leave()

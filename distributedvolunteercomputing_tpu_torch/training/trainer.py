@@ -1,9 +1,10 @@
 """The volunteer train loop (ported from
 ``distributedvolunteercomputing_tpu/training/trainer.py``).
 
-data -> device -> fwd/bwd -> local optimizer step, and every
-``average_every`` steps a params-mode averaging round through an injected
-callback: blocking (the round's result replaces the params) or overlapped
+data -> device -> fwd/bwd -> local optimizer step, and at each averaging
+point a params-mode round through an injected callback: every
+``average_every`` steps, or, with ``average_interval_s``, each time the
+wall clock crosses a multiple of the interval. Blocking (the round's result replaces the params) or overlapped
 with the next steps (Moshpit merge ``averaged + (current - snapshot)``).
 With a ``mesh`` (``parallel/mesh.py``) the step is data-parallel over its dp
 ranks (``parallel/train_step.py``): the averager reads rank 0's params, and a
@@ -13,10 +14,9 @@ Concurrent readers (the state-sync provider and the checkpoint writer, off
 the trainer thread) never touch ``state``: the step updates its tensors in
 place. They read ``host_snapshot()``, a host copy taken between steps at
 init, after an adoption or a restore, and at every averaging point (reusing
-the round's own host copy of the params). Gradient averaging, the
-wall-clock cadence, the outer optimizer, FSDP and the other mesh axes,
-multi-step calls and eval come with later slices of the port; the
-constructor does not accept them yet.
+the round's own host copy of the params). Gradient averaging, the outer
+optimizer, FSDP and the other mesh axes, multi-step calls and eval come with
+later slices of the port; the constructor does not accept them yet.
 """
 
 from __future__ import annotations
@@ -75,6 +75,14 @@ class Trainer:
         # host params go through ``averager``.
         averager: Optional[AveragerFn] = None,
         average_every: int = 10,
+        # Wall-clock cadence (0 = off, the step cadence above): a round is
+        # due when the clock crosses a multiple of the interval, so
+        # volunteers of different step speeds meet at the same boundary;
+        # each contribution weighs by the steps behind it.
+        average_interval_s: float = 0.0,
+        # The clock those boundaries are on: the volunteer passes its
+        # ClockSync's consensus clock; time.time by default.
+        wall_clock: Optional[Callable[[], float]] = None,
         # Overlap the round with the next local steps; ``max_staleness``
         # bounds how many steps a result may lag before it is dropped
         # instead of merged (0 = no bound).
@@ -93,6 +101,8 @@ class Trainer:
             )
         if average_every < 1:
             raise ValueError(f"average_every must be >= 1, got {average_every}")
+        if average_interval_s < 0:
+            raise ValueError(f"average_interval_s must be >= 0, got {average_interval_s}")
         if mesh is not None:
             ranks = [resolve_device(d) for d in mesh.flat()]
             if device is not None and resolve_device(device).type != ranks[0].type:
@@ -132,9 +142,15 @@ class Trainer:
         self.metrics = MetricsWriter(metrics_path, volunteer_id)
         self.averager = averager
         self.average_every = average_every
+        self.average_interval_s = float(average_interval_s)
+        self._wall_clock = wall_clock or time.time
+        # The next wall-clock boundary a round is due at; None until the
+        # first _avg_due arms it.
+        self._next_avg_t: Optional[float] = None
         # Local steps behind the NEXT contribution, read by the volunteer's
         # averager callback to weight it in samples: average_every on the
-        # happy path, more after failed rounds.
+        # happy path, more after failed rounds; under the wall-clock cadence
+        # whatever this volunteer managed in the window.
         self.steps_since_merge: int = average_every
         self._last_merge_step: Optional[int] = None
         self.overlap = bool(overlap) and averager is not None
@@ -229,6 +245,28 @@ class Trainer:
                 replica.step = int(step)
         self.mutation_counter += 1
         self._take_snapshot(int(self.state.step))
+
+    def _avg_due(self, step_no: int) -> bool:
+        """Is a round due at this step? Every ``average_every`` steps, or,
+        with ``average_interval_s``, when the wall clock has crossed the
+        armed boundary: boundaries are absolute multiples of the interval on
+        ``wall_clock``, so peers on one consensus clock fire together. The
+        first call only arms the next boundary (a joiner's first round is
+        the swarm's next one), and a slow step that skips several boundaries
+        still yields one round."""
+        if self.average_interval_s > 0:
+            now = self._wall_clock()
+            if self._next_avg_t is None:
+                self._arm_next_boundary(now)
+                return False
+            if now >= self._next_avg_t:
+                self._arm_next_boundary(now)
+                return True
+            return False
+        return step_no % self.average_every == 0
+
+    def _arm_next_boundary(self, now: float) -> None:
+        self._next_avg_t = (int(now // self.average_interval_s) + 1) * self.average_interval_s
 
     def _note_window_progress(self, step_no: int) -> None:
         if self._last_merge_step is not None:
@@ -344,20 +382,24 @@ class Trainer:
                     # Merge a round that completed since the last step, then
                     # (at the cadence, none in flight) launch the next one.
                     self._finish_overlap_round(step_no)
-                    if step_no % self.average_every == 0:
+                    if self._avg_due(step_no):
                         if self._inflight is None:
                             self._launch_overlap_round(step_no)
                         else:
                             # At the cadence whether or not a round runs:
                             # state sync serves current weights.
                             self._take_snapshot(step_no)
-                elif step_no % self.average_every == 0:
+                elif self._avg_due(step_no):
                     host, merged = self._run_average_round(step_no)
                     if merged is not None:
                         self._swap_params(merged, step_no)
                         self._last_merge_step = step_no
                     else:
                         self._take_snapshot(step_no, host)
+                if self.average_interval_s > 0 and step_no % self.average_every == 0:
+                    # Wall-clock rounds can be far apart: keep the state-sync
+                    # snapshot fresh on the step cadence all the same.
+                    self._take_snapshot(step_no)
             if self.on_step is not None:
                 self.on_step(self, step_no)
             if at_log_point:

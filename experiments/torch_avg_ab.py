@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py``'s averaging phase from two trees in turns, on one GPU.
+"""``chip_smoke.py``'s trainer and averaging phases from two trees in turns,
+on one GPU.
 
     git archive <parent commit> | tar -x -C build/parent   # the other tree
     python3 experiments/torch_avg_ab.py [--other build/parent] [--order pccppccp]
 
 Each run is a process of its own that imports ``chip_smoke`` and the port
-from its tree, builds that tree's kernels and runs ``averaging_phase()``:
-two full-width gpt2_small volunteers in blocking bf16 sync rounds on the
-one card. ``p`` is the other tree, ``c`` this checkout. Prints one JSON
-line per run (round seconds per volunteer, committed rounds, the phase's
-round spans), then the card's name and power limit.
+from its tree, builds that tree's kernels and runs ``trainer_phase()`` (20
+timed full-width gpt2_small steps; its parity check left out) and
+``averaging_phase()``: two full-width volunteers in blocking bf16 sync
+rounds on the one card. ``p`` is the other tree, ``c`` this checkout.
+Prints one JSON line per run (the trainer's samples/s, round seconds per
+volunteer, committed rounds, the phase's round spans), then the card's
+name and power limit.
 """
 
 import argparse
@@ -23,7 +26,8 @@ HERE = Path(__file__).resolve().parent.parent
 CODE = (
     "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs;"
     "from distributedvolunteercomputing_tpu_torch.utils.torchenv import resolve_device; resolve_device(None);"
-    "cs.averaging_phase()"
+    "from distributedvolunteercomputing_tpu_torch.ops import flash_attention as fa;"
+    "cs.parity_phase = lambda *a: None; cs.trainer_phase(fa); cs.averaging_phase()"
 )
 
 
@@ -40,7 +44,9 @@ def main() -> int:
         )
         rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
         row = next((r for r in rows if r.get("phase") == "averaging"), None)
-        rec = {"tree": tag, "rc": proc.returncode, "wall_s": time.time() - t0}
+        trainer = next((r for r in rows if r.get("phase") == "trainer"), {})
+        rec = {"tree": tag, "rc": proc.returncode, "wall_s": time.time() - t0,
+               "samples_per_sec": trainer.get("samples_per_sec"), "step_ms": trainer.get("step_ms")}
         if row:
             rec.update(round_s=row["round_s"], rounds_ok=row["rounds_ok"], run_s=row["run_s"],
                        spans=row["spans"], steps=row["steps"])

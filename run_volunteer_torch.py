@@ -12,6 +12,12 @@ the chosen mode. The flagship path:
         --averaging sync --wire bf16 --coordinator 127.0.0.1:9000 \
         --checkpoint-dir ckpt/vol0 --metrics vol0.jsonl
 
+The other modes: ``--averaging gossip``; ``--averaging butterfly``, on a
+20 s wall-clock cadence on the swarm's consensus clock unless
+``--average-interval-s`` sets another (0 = the step cadence); and
+``--averaging byzantine --method trimmed_mean --resilience`` (full-mesh
+robust rounds with the phi-accrual detector, the policy and the controller).
+
 On SIGTERM (a preemption notice) the volunteer stops after its current step,
 saves a final checkpoint, leaves the swarm and exits 0. It prints
 ``VOLUNTEER_DONE`` and its summary as JSON when it ends.
@@ -38,8 +44,6 @@ LATER_FLAGS = {
     "zone": "zones",
     "cross_zone_every_k": "zones",
     "zone_shards": "zone sharding",
-    "method": "robust estimators (byzantine averaging)",
-    "method_kw": "robust estimators (byzantine averaging)",
     "fsdp": "fsdp",
     "seq_sharded": "sequence parallelism",
     "sp_impl": "sequence parallelism",
@@ -49,9 +53,6 @@ LATER_FLAGS = {
     "outer_optimizer": "the outer optimizer",
     "outer_lr": "the outer optimizer",
     "outer_momentum": "the outer optimizer",
-    "resilience": "the resilience layer",
-    "no_adapt": "the controller (the resilience layer)",
-    "phi_threshold": "the resilience layer",
 }
 
 
@@ -361,9 +362,8 @@ def main() -> None:
     for dest, what in LATER_FLAGS.items():
         if getattr(args, dest) != ap.get_default(dest):
             refuse(f"--{dest.replace('_', '-')} ({what}) is not ported yet; ported: {PORTED}")
-    if args.average_interval_s:
-        refuse(f"--average-interval-s (the wall-clock cadence) is not ported yet; ported: {PORTED}")
     overrides = _parse_kv(args.model_override)
+    method_kw = _parse_kv(args.method_kw)
     try:
         get_model(args.model, **overrides)
     except KeyError as e:
@@ -379,6 +379,7 @@ def main() -> None:
             peer_id=args.peer_id,
             averaging=args.averaging,
             average_every=args.average_every,
+            average_interval_s=args.average_interval_s,
             wire=args.wire,
             overlap=args.overlap,
             max_staleness=args.max_staleness,
@@ -404,7 +405,12 @@ def main() -> None:
             checkpoint_every=args.checkpoint_every,
             join_timeout=args.join_timeout,
             gather_timeout=args.gather_timeout,
+            method=args.method,
+            method_kw=method_kw or None,
             adaptive_timeout=args.adaptive_timeout,
+            resilience=args.resilience,
+            adapt=not args.no_adapt,
+            phi_threshold=args.phi_threshold,
             round_deadline_s=args.round_deadline_s,
             telemetry=not args.no_telemetry,
             health_probe=not (args.no_telemetry or args.no_health_probe),

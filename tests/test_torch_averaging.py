@@ -253,17 +253,25 @@ def test_mixed_round_with_the_reference():
 
 
 def test_unported_modes_and_wires_raise():
+    """Every mode builds its port averager; what is still unported (the
+    other wires, the shard manager) raises, and the resilience
+    collaborators are accepted."""
+    from distributedvolunteercomputing_tpu_torch.swarm import averager as avg_mod
+    from distributedvolunteercomputing_tpu_torch.swarm.resilience import ResiliencePolicy
+
     async def main():
         t = Transport()
         dht = DHTNode(t)
         mem = SwarmMembership(dht, "solo", ttl=10.0)
-        for mode in ("gossip", "butterfly", "byzantine"):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                make_averager(mode, t, dht, mem)
+        for mode, cls in (("gossip", avg_mod.GossipAverager), ("butterfly", avg_mod.ButterflyAverager),
+                          ("byzantine", avg_mod.ByzantineAverager)):
+            assert type(make_averager(mode, t, dht, mem)) is cls
         with pytest.raises(NotImplementedError, match="q8"):
             SyncAverager(t, dht, mem, wire="q8")
-        with pytest.raises(NotImplementedError, match="resilience"):
-            SyncAverager(t, dht, mem, resilience=object())
+        with pytest.raises(NotImplementedError, match="shard_manager"):
+            SyncAverager(t, dht, mem, shard_manager=object())
+        policy = ResiliencePolicy()
+        assert SyncAverager(t, dht, mem, resilience=policy).resilience is policy
         await asyncio.wait_for(t.close(), 5)
 
     run(main())

@@ -59,6 +59,13 @@ LIFECYCLE_SLICE = (
 )
 ENTRY_SCRIPTS = [REPO / "coordinator_torch.py", REPO / "run_volunteer_torch.py"]
 
+# The modules of the protocols slice (gossip, butterfly, byzantine).
+PROTOCOLS_SLICE = (
+    "distributedvolunteercomputing_tpu_torch.swarm.failure_detector",
+    "distributedvolunteercomputing_tpu_torch.swarm.resilience",
+    "distributedvolunteercomputing_tpu_torch.swarm.clocksync",
+)
+
 
 def test_scans_cover_the_swarm_slice():
     assert set(SWARM_SLICE) <= {m for m, _ in _port_modules()}
@@ -69,13 +76,17 @@ def test_scans_cover_the_lifecycle_slice():
     assert all(p.exists() for p in ENTRY_SCRIPTS)
 
 
+def test_scans_cover_the_protocols_slice():
+    assert set(PROTOCOLS_SLICE) <= {m for m, _ in _port_modules()}
+
+
 def test_entry_scripts_load_no_jax():
     # A subprocess, as above: each script's own imports, then the package
     # modules its main() reaches, then the volunteer script's main() itself.
     code = (
         "import importlib, json, runpy, sys\n"
         f"for s in {[str(p) for p in ENTRY_SCRIPTS]!r}: runpy.run_path(s)\n"
-        f"for m in {list(LIFECYCLE_SLICE) + ['distributedvolunteercomputing_tpu_torch.swarm.volunteer']!r}:\n"
+        f"for m in {list(LIFECYCLE_SLICE + PROTOCOLS_SLICE) + ['distributedvolunteercomputing_tpu_torch.swarm.volunteer']!r}:\n"
         "    importlib.import_module(m)\n"
         "sys.argv = ['run_volunteer_torch.py', '--list-models']\n"
         f"runpy.run_path({str(ENTRY_SCRIPTS[1])!r}, run_name='__main__')\n"
@@ -114,7 +125,7 @@ def test_import_loads_no_jax():
 
 SCRIPTS = [REPO / "chip_smoke.py"] + ENTRY_SCRIPTS + [REPO / "experiments" / f for f in (
     "torch_step_profile.py", "torch_ring_cards.py", "torch_dp_trace.py", "torch_attention_shapes.py",
-    "torch_dq_variants.py", "torch_codec_variants.py", "torch_avg_ab.py")]
+    "torch_dq_variants.py", "torch_codec_variants.py", "torch_avg_ab.py", "torch_departed_member.py")]
 
 
 @pytest.mark.parametrize("path", SCRIPTS + [p for _, p in _port_modules()], ids=lambda p: p.name)

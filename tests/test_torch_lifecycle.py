@@ -20,7 +20,10 @@ flags.
   flags (read from their ``add_argument`` calls), with ``--device`` the
   one flag of the port's own.
 - Options of later slices raise in ``VolunteerConfig`` and make the script
-  exit with status 2.
+  exit with status 2; the options this slice ported (the three averaging
+  modes, the wall-clock cadence, the robust methods, the resilience layer)
+  reach the averager, the trainer and the policy, from the config and from
+  the script.
 """
 
 import ast
@@ -319,8 +322,7 @@ def _non_default(value):
 @pytest.mark.parametrize(
     "field,value",
     [(f, _non_default(d)) for f, (d, _) in vol_mod.LATER_SLICES.items()]
-    + [("average_interval_s", 5.0), ("averaging", "gossip"), ("averaging", "byzantine"), ("wire", "q8"),
-       ("wire", "topk"), ("mesh", "dp=1,tp=2")],
+    + [("wire", "q8"), ("wire", "topk"), ("wire", "powersgd"), ("wire", "sign"), ("mesh", "dp=1,tp=2")],
 )
 def test_unported_config_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -346,8 +348,7 @@ def _later_flag_argv():
                 specs[dest] = [flag, "3"]
     assert set(specs) == set(later)
     return [specs[d] for d in sorted(specs)] + [
-        ["--average-interval-s", "5"], ["--averaging", "gossip"], ["--wire", "powersgd"],
-        ["--model", "bert_mlm"], ["--mesh", "dp=1,tp=2"],
+        ["--wire", "powersgd"], ["--wire", "q8"], ["--model", "bert_mlm"], ["--mesh", "dp=1,tp=2"],
     ]
 
 
@@ -362,6 +363,99 @@ def test_script_refuses_unported_flags(argv, monkeypatch, capsys):
         main()
     assert e.value.code == 2
     assert "not ported" in capsys.readouterr().err
+
+
+# The options this slice ported: case -> (config fields, script argv). Each
+# replaces a refusal the earlier slices tested.
+PORTED_OPTIONS = {
+    "method": (dict(averaging="byzantine", method="median"), ["--averaging", "byzantine", "--method", "median"]),
+    "method_kw": (dict(averaging="byzantine", method="trimmed_mean", method_kw={"trim": 1}),
+                  ["--averaging", "byzantine", "--method", "trimmed_mean", "--method-kw", "trim=1"]),
+    "resilience": (dict(averaging="sync", resilience=True), ["--averaging", "sync", "--resilience"]),
+    "phi_threshold": (dict(averaging="sync", resilience=True, phi_threshold=3.0),
+                      ["--averaging", "sync", "--resilience", "--phi-threshold", "3"]),
+    "adapt": (dict(averaging="byzantine", resilience=True, adapt=False),
+              ["--averaging", "byzantine", "--resilience", "--no-adapt"]),
+    "average_interval_s": (dict(averaging="sync", average_interval_s=5.0),
+                           ["--averaging", "sync", "--average-interval-s", "5"]),
+    "gossip": (dict(averaging="gossip"), ["--averaging", "gossip"]),
+    "butterfly": (dict(averaging="butterfly"), ["--averaging", "butterfly"]),
+    "byzantine": (dict(averaging="byzantine"), ["--averaging", "byzantine"]),
+}
+
+
+def _start_and_stop(cfg):
+    async def main():
+        vol = Volunteer(cfg)
+        try:
+            await vol.start()
+            return vol
+        finally:
+            await vol.stop()
+
+    return run(main())
+
+
+def _check_reached(case, vol):
+    from distributedvolunteercomputing_tpu_torch.swarm import averager as avg_mod
+    from distributedvolunteercomputing_tpu_torch.swarm.controller import SwarmController
+    from distributedvolunteercomputing_tpu_torch.swarm.failure_detector import PhiAccrualDetector
+    from distributedvolunteercomputing_tpu_torch.swarm.resilience import ResiliencePolicy
+
+    avg, trainer = vol.averager, vol.trainer
+    if case in ("method", "method_kw", "byzantine"):
+        assert type(avg) is avg_mod.ByzantineAverager
+        assert avg.method == {"method": "median"}.get(case, "trimmed_mean")
+        assert avg.method_kw == ({"trim": 1} if case == "method_kw" else {})
+    elif case in ("resilience", "phi_threshold", "adapt"):
+        fd, policy = vol.failure_detector, vol.resilience_policy
+        assert isinstance(fd, PhiAccrualDetector) and isinstance(policy, ResiliencePolicy)
+        assert fd.threshold == (3.0 if case == "phi_threshold" else 8.0)
+        assert avg.failure_detector is fd is vol.membership.failure_detector and avg.resilience is policy
+        assert policy.failure_detector is fd
+        if case == "adapt":  # --no-adapt: no controller, none in the report
+            assert vol.controller is None and avg.controller is None and "controller" not in vol._build_report()
+        else:
+            assert isinstance(vol.controller, SwarmController) and avg.controller is vol.controller
+            assert "controller" in vol._build_report()
+    elif case in ("average_interval_s", "butterfly"):
+        interval = 5.0 if case == "average_interval_s" else vol_mod.DEFAULT_BUTTERFLY_INTERVAL_S
+        assert vol.cfg.average_interval_s == trainer.average_interval_s == interval
+        cs = vol.clocksync
+        assert cs is not None and trainer._wall_clock == cs.now and avg.clock == cs.now
+        if case == "butterfly":
+            assert type(avg) is avg_mod.ButterflyAverager and interval == 20.0
+    else:
+        # Gossip publishes the post-state-sync params before its first round.
+        assert type(avg) is avg_mod.GossipAverager and avg._current is not None
+        assert vol.clocksync is None and trainer.average_interval_s == 0.0
+
+
+@pytest.mark.parametrize("case", list(PORTED_OPTIONS))
+def test_ported_config_option_reaches_the_volunteer(case):
+    fields, _ = PORTED_OPTIONS[case]
+    cfg = VolunteerConfig(model="gpt2_small", model_overrides=TINY, batch_size=2, device="cpu",
+                          heartbeat_ttl=3.0, join_timeout=1.0, gather_timeout=2.0, **fields)
+    _check_reached(case, _start_and_stop(cfg))
+
+
+@pytest.mark.parametrize("case", list(PORTED_OPTIONS))
+def test_script_passes_ported_flag(case, monkeypatch):
+    """The script builds the volunteer the same flags describe, and the
+    option reaches it (``run_volunteer`` replaced by a start and a stop)."""
+    import runpy
+
+    _, argv = PORTED_OPTIONS[case]
+    started = []
+    monkeypatch.setattr(vol_mod, "run_volunteer", lambda cfg: started.append(_start_and_stop(cfg)) or {})
+    main = runpy.run_path(str(REPO / "run_volunteer_torch.py"))["main"]
+    monkeypatch.setattr(sys, "argv", [
+        "run_volunteer_torch.py", "--model", "gpt2_small", "--batch-size", "2", "--device", "cpu",
+        "--join-timeout", "1", "--gather-timeout", "2",
+        *[a for k, v in TINY.items() for a in ("--model-override", f"{k}={json.dumps(v)}")], *argv,
+    ])
+    main()
+    _check_reached(case, started[0])
 
 
 def test_ported_options_reach_the_averager_trainer_and_codec():
@@ -399,3 +493,105 @@ def test_ported_options_reach_the_averager_trainer_and_codec():
 
     with pytest.raises(ValueError, match="accum_steps=3"):
         run(start_bad())
+
+
+# The volunteer's fault-injection hooks, read from the environment as the
+# reference volunteer reads them.
+def _hook_cfg(**kw):
+    return VolunteerConfig(model="gpt2_small", model_overrides=TINY, batch_size=2, device="cpu", wire="f32",
+                           heartbeat_ttl=3.0, join_timeout=1.0, gather_timeout=2.0, **kw)
+
+
+def test_state_poison_hook_serves_step_plus_lie_and_scaled_tree(monkeypatch):
+    """``DVC_CHAOS_STATE_POISON=lie,scale``: state sync announces and serves
+    the provider's step + lie with its tree scaled. A reference puller and a
+    port volunteer that joins both take that step and that tree."""
+    monkeypatch.setenv("DVC_CHAOS_STATE_POISON", "5,-2")
+
+    async def main():
+        a = Volunteer(_hook_cfg(peer_id="poisoner", averaging="sync"))
+        b = Volunteer(_hook_cfg(peer_id="joiner", averaging="sync"))
+        t = dht = None
+        try:
+            await a.start()
+            t, dht, ref = await _sync_node("reference", "ref", "f32", boot=a.transport.addr)
+            ref_pulled = await ref.pull(jax.tree_util.tree_map(np.zeros_like, _reference_tree()), 0)
+            b.cfg.coordinator = "%s:%d" % a.transport.addr
+            await b.start()
+            return a.trainer.host_snapshot(), ref_pulled, int(b.trainer.state.step), b.trainer.state.params
+        finally:
+            await asyncio.gather(a.stop(), b.stop())
+            if t is not None:
+                await asyncio.wait_for(dht.stop(), 5)
+                await asyncio.wait_for(t.close(), 5)
+
+    (step, served), ref_pulled, b_step, b_params = run(main())
+    want = (-2 * flatten_to_buffer(served)[0]).view(np.uint32)
+    assert step == 0 and ref_pulled[0] == 5 and b_step == 5
+    assert jax_flatten(ref_pulled[1])[0].view(np.uint32).tobytes() == want.tobytes()
+    assert flatten_to_buffer(b_params)[0].view(np.uint32).tobytes() == want.tobytes()
+
+
+def test_step_delay_hook_stretches_each_step(monkeypatch):
+    """``DVC_STEP_DELAY_MS=<ms>`` sleeps that long after each step; unset,
+    the volunteer adds no step hook."""
+    def trained_step_times(delay_ms):
+        if delay_ms:
+            monkeypatch.setenv("DVC_STEP_DELAY_MS", str(delay_ms))
+        else:
+            monkeypatch.delenv("DVC_STEP_DELAY_MS", raising=False)
+
+        async def main():
+            vol = Volunteer(_hook_cfg(steps=3))
+            try:
+                await vol.start()
+                hook, times = vol.trainer.on_step, []
+                if hook is not None:
+                    vol.trainer.on_step = lambda trainer, step: (hook(trainer, step), times.append(time.perf_counter()))
+                await vol.train()
+                return hook, times
+            finally:
+                await vol.stop()
+
+        return run(main())
+
+    hook, _ = trained_step_times(0)
+    assert hook is None
+    hook, times = trained_step_times(300)
+    assert hook is not None and len(times) == 3
+    assert min(b - a for a, b in zip(times, times[1:])) >= 0.3
+
+
+def test_clock_skew_hook_is_pulled_onto_the_unskewed_peers_boundary(monkeypatch):
+    """``DVC_CLOCK_SKEW_S=<s>`` skews a volunteer's local clock under the
+    wall-clock cadence; clock sync pulls the skewed and the unskewed
+    volunteer onto one consensus time, so both arm the same boundary."""
+    interval = 10.0
+
+    async def main():
+        a = Volunteer(_hook_cfg(peer_id="straight", averaging="sync", average_interval_s=interval))
+        b = Volunteer(_hook_cfg(peer_id="skewed", averaging="sync", average_interval_s=interval))
+        try:
+            await a.start()
+            monkeypatch.setenv("DVC_CLOCK_SKEW_S", "6")
+            b.cfg.coordinator = "%s:%d" % a.transport.addr
+            await b.start()
+            monkeypatch.delenv("DVC_CLOCK_SKEW_S")
+            skews = [v.clocksync.clock() - time.time() for v in (a, b)]
+            # The periodic estimation's rounds, run now: each moves halfway.
+            for _ in range(8):
+                await a.clocksync.estimate()
+                await b.clocksync.estimate()
+            while (a.clocksync.now() + 0.1) % interval < 0.2:  # not astride a boundary
+                await asyncio.sleep(0.1)
+            gap = abs(a.clocksync.now() - b.clocksync.now())
+            for v in (a, b):
+                v.trainer._arm_next_boundary(v.clocksync.now())
+            return skews, gap, [v.trainer._next_avg_t for v in (a, b)], [v.clocksync.offset for v in (a, b)]
+        finally:
+            await asyncio.gather(a.stop(), b.stop())
+
+    skews, gap, boundaries, offsets = run(main())
+    assert abs(skews[0]) < 0.1 and abs(skews[1] - 6) < 0.1
+    assert gap < 0.05 and boundaries[0] == boundaries[1]
+    assert abs(offsets[0] - offsets[1] - 6) < 0.05  # the corrections take out the skew

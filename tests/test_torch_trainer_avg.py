@@ -132,7 +132,7 @@ def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(TypeError):
         Trainer(bundle, batch_size=2, device="cpu", outer_optimizer="nesterov")
     with pytest.raises(NotImplementedError, match="not ported"):
-        VolunteerConfig(averaging="gossip")
+        VolunteerConfig(averaging="gossip", average_what="grads")
     with pytest.raises(NotImplementedError, match="not ported"):
         VolunteerConfig(averaging="sync", wire="q8")
 
