@@ -20,6 +20,10 @@ Phases, each printing one JSON line:
             and their SDPA yardsticks timed by device time in turns (kernels,
             library, library, kernels; ``device_ms``), contiguous and on the
             qkv view, with plain times and the card's bound for the same work;
+            then the same check and timing at each model's main-path shape
+            (``MODEL_ATTENTION``: BERT-base (16, 12, 512, 64) and ViT-Tiny
+            (32, 3, 65, 64) non-causal on the qkv view, Llama-2-7B (1, 32,
+            4096, 128) causal);
 4. trainer  ``Trainer(get_model("gpt2_small"), batch_size=8)`` at full width:
             2 warm-up steps, 20 timed steps with finite losses, launch counts of
             24 K1 / 12 K2 / 12 K3 per step; then one fwd/bwd through the kernels
@@ -151,9 +155,37 @@ Phases, each printing one JSON line:
             card, the attacker's codec ops too (no host op); each honest policy recorded
             a rejection of the attacker; each report carries the
             controller's state; the attacker exits 0 on SIGTERM.
+14. mnist   capability config 1 through the entry script's default model:
+            ``run_volunteer_torch.py`` with no ``--model`` (mnist_mlp) and
+            config 1's flags (``MNIST_ARGV``); exit 0 with the target loss
+            0.15 crossed.
+15. vit     cifar10_vit at its registry config, one volunteer, no averaging,
+            ``VIT_STEPS`` steps at batch ``VIT_BATCH``: finite losses, K1-K3
+            24 / 12 / 12 per step.
+16. resnet_sync  capability config 2: phase 6 with cifar10_resnet18 at its
+            registry widths (11.2 M params, GroupNorm), batch 16, lr 0.005,
+            rounds every 10 steps (``RESNET``), with phase 6's checks (K4 /
+            K5 at the counts the rounds imply, values within ``AVG_TOL``).
+17. bert_gossip  capability config 3: phase 11 with four bert_mlm volunteers
+            (BERT-base, T 512), batch 16, lr 0.003 (``BERT``), with phase
+            11's checks; K1-K3 24 / 12 / 12 per step.
+18. llama_byzantine  capability config 5: phase 13 with llama_lora at
+            ``LlamaConfig.llama2_7b()`` (vocab 32000, d 4096, 32 heads of 128,
+            32 layers, d_ff 11008, LoRA rank 8 on q and v), batch 1 at T
+            4096, bf16 params (``LLAMA``; three f32 bases would not fit the
+            card), the attacker a process of the entry script with the same
+            ``--model-override`` flags; phase 13's checks, and: each
+            contribution is the 4,194,304 adapter elements in 8,388,608 wire
+            bytes, each full round sends two to three of them, the base is
+            bit-unchanged after training on each honest volunteer
+            (``bits_fingerprint``), each volunteer's init peak is at most 2
+            GiB above the memory it left resident (no whole f32 model on the
+            card), K1-K3 64 / 32 / 32 per step; it prints the card's used
+            memory at the phase's peak (``CardMemorySampler``).
 
 Then one line listing every kernel (``launches_lifecycle``: the counts of
-phase 10, ``launches_protocols`` those of phases 11-13, in this process),
+phase 10, ``launches_protocols`` those of phases 11-13, ``launches_models``
+those of phases 15-18, ``shapes_models`` K1-K3 at the models' shapes),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script
 exits non-zero and prints no ``ok`` line. It needs one card and no network.
@@ -471,23 +503,25 @@ DEVICE_MS_METHOD = ("device time per call: back-to-back calls enqueued while a s
                     "CUDA events around the calls only (chip_smoke.device_ms)")
 
 
-def time_attention(fa, peak, reps: int = 40) -> dict:
-    """K1-K3 and their SDPA yardsticks at the flagship shape by device time
-    (``device_ms``), in turns in this one call: kernels, library, library,
-    kernels; contiguous and on the qkv view. Plain versions once each."""
+def time_attention(fa, peak, reps: int = 40, shape=FLAGSHIP, causal: bool = True,
+                   layouts=("contiguous", "qkv")) -> dict:
+    """K1-K3 and their SDPA yardsticks at ``shape`` (the flagship's by
+    default) by device time (``device_ms``), in turns in this one call:
+    kernels, library, library, kernels; for each of ``layouts``. Plain
+    versions once each."""
     import torch.nn.functional as F
 
     out = {}
-    for layout in ("contiguous", "qkv"):
-        q, k, v, do = attention_inputs(FLAGSHIP, torch.bfloat16, layout)
-        runs = attention_runs(fa, q, k, v, do, True)
+    for layout in layouts:
+        q, k, v, do = attention_inputs(shape, torch.bfloat16, layout)
+        runs = attention_runs(fa, q, k, v, do, causal)
         qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
 
         def sdpa_fwd():
-            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
         def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
             torch.autograd.grad(o, (qs, ks, vs), do)
 
         library = {"sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd}
@@ -496,7 +530,7 @@ def time_attention(fa, peak, reps: int = 40) -> dict:
         for name in order:
             fn = runs[name][0] if name in runs else library[name]
             readings[name].append(device_ms(fn, reps if name in runs else reps // 2))
-        row = {"phase": "kernel_times", "layout": layout, "shape": list(FLAGSHIP), "causal": True,
+        row = {"phase": "kernel_times", "layout": layout, "shape": list(shape), "causal": causal,
                "method": DEVICE_MS_METHOD, "order": order}
         for name, rs in readings.items():
             row[name] = {"ms": statistics.mean(r["ms"] for r in rs), "readings_ms": [r["ms"] for r in rs],
@@ -1119,9 +1153,11 @@ class ProtoRecorder:
                 and len(c["outcomes"].get("on_time", ())) == partners and not c["outcomes"].get("absent")]
 
 
-def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging") -> dict:
+def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging", model: str = "gpt2_small",
+                    batch_size: int = 8, every: int = AVG_EVERY, lr=None) -> dict:
     """Two full-width volunteers averaging in blocking sync rounds (see the
-    module doc). With ``mesh`` (a port ``Mesh``) each volunteer trains
+    module doc): gpt2_small at batch 8 every ``AVG_EVERY`` steps by
+    default. With ``mesh`` (a port ``Mesh``) each volunteer trains
     data-parallel over its ranks and its codec runs on them; ``collective``
     "ring" folds the leader's rounds on K6/K7."""
     from distributedvolunteercomputing_tpu_torch import native
@@ -1156,12 +1192,14 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
         return rec
 
     async def run_pair():
-        base = dict(model="gpt2_small", batch_size=8, averaging="sync", wire="bf16",
-                    average_every=AVG_EVERY, overlap=AVG_OVERLAP, steps=AVG_MAX_STEPS,
-                    mesh=mesh if mesh is not None else "", mesh_collective=collective)
+        base = dict(model=model, batch_size=batch_size, averaging="sync", wire="bf16",
+                    average_every=every, overlap=AVG_OVERLAP, steps=AVG_MAX_STEPS,
+                    mesh=mesh if mesh is not None else "", mesh_collective=collective,
+                    **({"lr": lr} if lr is not None else {}))
         paths = [out_dir / f"{phase}_volunteer{i}.jsonl" for i in range(2)]
         for p in paths:
             p.unlink(missing_ok=True)
+        release_card_memory()
         t0 = time.perf_counter()
         v0 = Volunteer(VolunteerConfig(peer_id="vol0", seed=1, metrics_path=str(paths[0]), **base))
         await v0.start()
@@ -1208,10 +1246,11 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
     )
     folder = "ring" if ring else "staged"
     row = {
-        "phase": phase, "model": "gpt2_small", "batch_size": 8, "max_steps": AVG_MAX_STEPS,
+        "phase": phase, "model": model, "batch_size": batch_size, "lr": lr, "max_steps": AVG_MAX_STEPS,
         "mesh": repr(mesh) if mesh is not None else None, "collective": collective,
         "commits": AVG_COMMITS, "steps": [s["steps"] for s in summaries],
-        "average_every": AVG_EVERY, "overlap": AVG_OVERLAP, "wire": "bf16",
+        "average_every": every, "overlap": AVG_OVERLAP, "wire": "bf16",
+        "params": int(recs[0].buffers[-1]["payload"].size) if recs[0].buffers else None,
         "start_s": start_s, "run_s": run_s, "rounds_ok": rounds,
         "rounds_skipped": [s["rounds_skipped"] for s in summaries],
         "rounds_degraded": [s["rounds_degraded"] for s in summaries],
@@ -1692,28 +1731,42 @@ def proto_limit(stages: int, scale):
     return (stages * tol["bf16_u"] + tol["f32_ulps"]) * scale + tol["floor"]
 
 
-async def start_volunteers(n, out_dir, what, first: int = 0, coordinator=None, **kw):
-    """In-process volunteers ``first`` .. ``first + n - 1`` of one phase,
-    gpt2_small at full width, batch 8, blocking rounds on the bf16 wire,
-    bootstrapping from ``coordinator``, else from the first of them."""
+def release_card_memory() -> None:
+    """The volunteers of earlier phases hold card memory until collected."""
     import gc
 
-    from distributedvolunteercomputing_tpu_torch.swarm.volunteer import Volunteer, VolunteerConfig
-
-    gc.collect()  # the volunteers of earlier phases hold card memory until collected
+    gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+
+
+async def start_volunteers(n, out_dir, what, first: int = 0, coordinator=None, model: str = "gpt2_small",
+                           batch_size: int = 8, **kw):
+    """In-process volunteers ``first`` .. ``first + n - 1`` of one phase,
+    ``model`` at full width (gpt2_small, batch 8 by default), blocking
+    rounds on the bf16 wire, bootstrapping from ``coordinator``, else from
+    the first of them. Each gets ``init_memory``: the card memory its start
+    left resident and the peak above what was allocated before it."""
+    from distributedvolunteercomputing_tpu_torch.swarm.volunteer import Volunteer, VolunteerConfig
+
+    release_card_memory()
     vols, paths = [], []
     for i in range(first, first + n):
         paths.append(out_dir / f"{what}_volunteer{i}.jsonl")
         paths[-1].unlink(missing_ok=True)
         boot = coordinator or ("%s:%d" % vols[0].transport.addr if vols else None)
         vols.append(Volunteer(VolunteerConfig(
-            model="gpt2_small", batch_size=8, wire="bf16", overlap=False, steps=PROTO_MAX_STEPS,
+            model=model, batch_size=batch_size, wire="bf16", overlap=False, steps=PROTO_MAX_STEPS,
             mesh_codec="mesh", gather_timeout=PROTO_GATHER_S, peer_id=f"{what}{i}", seed=i + 1,
             metrics_path=str(paths[-1]), coordinator=boot, **kw,
         )))
+        cuda_sync()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         await vols[-1].start()
+        cuda_sync()
+        vols[-1].init_memory = {"resident_bytes": torch.cuda.memory_allocated() - before,
+                                "peak_bytes": torch.cuda.max_memory_allocated() - before}
     return vols, paths
 
 
@@ -1750,12 +1803,27 @@ def proto_launches() -> dict:
     return {**flash_launches(), **dict(mc.LAUNCHES)}
 
 
-def proto_checks(what, vols, summaries, paths, launches, failures) -> dict:
-    """Finite losses; K1-K3 launches 24 / 12 / 12 per step of this
-    process's volunteers; every codec op on the card."""
+def flash_per_step(model: str, overrides=None) -> tuple:
+    """K1 / K2 / K3 launches per train step of ``model`` at its registry
+    config: each attention layer's forward runs twice under remat (the
+    forward and backward's recompute), its dq and dk/dv once; none for the
+    models without attention."""
+    from distributedvolunteercomputing_tpu_torch.models import get_model
+
+    cfg = get_model(model, **(overrides or {})).config
+    layers = getattr(cfg, "n_layers", 0) if hasattr(cfg, "n_heads") else 0
+    return ((2 if cfg.remat else 1) * layers, layers, layers) if layers else (0, 0, 0)
+
+
+def proto_checks(what, vols, summaries, paths, launches, failures, model: str = "gpt2_small",
+                 overrides=None) -> dict:
+    """Finite losses; K1-K3 launches per step of this process's volunteers
+    as ``flash_per_step`` (24 / 12 / 12 for gpt2_small); every codec op on
+    the card."""
     losses = [[r["loss"] for r in read_jsonl(p) if "loss" in r] for p in paths]
     steps = sum(len(ls) for ls in losses)
-    expect_flash = {"flash_fwd": 24 * steps, "flash_dq": 12 * steps, "flash_dkv": 12 * steps}
+    k1, k2, k3 = flash_per_step(model, overrides)
+    expect_flash = {"flash_fwd": k1 * steps, "flash_dq": k2 * steps, "flash_dkv": k3 * steps}
     codec = vols[0].averager.mesh_codec.stats()
     if not all(losses) or not all(math.isfinite(x) for ls in losses for x in ls):
         failures.append(f"{what}: missing or non-finite losses")
@@ -1772,21 +1840,23 @@ def k4_check(what, launches, k4_min, failures) -> None:
         failures.append(f"{what}: K4 launches {launches['bf16_encode']} < the {k4_min} its rounds imply")
 
 
-def gossip_phase() -> dict:
-    """Two full-width gossip volunteers in this process, params mode, the
-    step cadence every ``PROTO_EVERY`` steps: each publishes at its start,
-    then exchanges with the other at each averaging point. Each exchange's
-    mix is held against the weighted mean of the caller's buffer and the
-    partner's as the partner served it (recorded in its ``gossip.exchange``
-    handler)."""
+def gossip_phase(model: str = "gpt2_small", n: int = 2, batch_size: int = 8, phase: str = "gossip",
+                 **kw) -> dict:
+    """``n`` full-width gossip volunteers of ``model`` in this process (two
+    gpt2_small by default), params mode, the step cadence every
+    ``PROTO_EVERY`` steps: each publishes at its start, then exchanges with
+    a partner at each averaging point. Each exchange's mix is held against
+    the weighted mean of the caller's buffer and the partner's as the
+    partner served it (recorded in its ``gossip.exchange`` handler, by
+    exchange id). ``kw`` goes to each ``VolunteerConfig``."""
     import numpy as np
 
     out_dir = HERE / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    served = [collections.OrderedDict(), collections.OrderedDict()]  # xid -> (weight, buffer) each served
-    pending = [None, None]  # (xid, (weight, buffer) before the mix) of the call's exchange
-    mixes = [collections.deque(maxlen=2), collections.deque(maxlen=2)]
-    exchanges = [0, 0]
+    served = collections.OrderedDict()  # xid -> (weight, buffer) as its partner served it
+    pending = [None] * n  # (xid, (weight, buffer) before the mix) of the call's exchange
+    mixes = [collections.deque(maxlen=2) for _ in range(n)]
+    exchanges = [0] * n
     failures = []
 
     def instrument(vol, i):
@@ -1796,9 +1866,9 @@ def gossip_phase() -> dict:
         async def recording_handler(args, payload):
             mine = avg._current  # what the handler serves: read before its first await
             out = await handler(args, payload)
-            served[i][args.get("xid")] = mine
-            while len(served[i]) > 4:
-                served[i].popitem(last=False)
+            served[args.get("xid")] = mine
+            while len(served) > 4 * n:
+                served.popitem(last=False)
             return out
 
         async def recording_call(addr, method, args=None, *a, **kw):
@@ -1821,38 +1891,41 @@ def gossip_phase() -> dict:
                 post_w, post = avg._current
                 exchanges[i] += 1
                 mixes[i].append({"xid": xid, "pre_w": pre_w, "pre": pre, "post_w": post_w, "post": post,
-                                 "step": c["step"], "s": c["s"]})
+                                 "step": c["step"], "s": c["s"], "partner": served.get(xid)})
 
         rec.before, rec.after = before, after
         rec.done = lambda _r: min(exchanges) >= GOSSIP_MIXES
         return rec
 
     async def run():
-        vols, paths = await start_volunteers(2, out_dir, "gossip", averaging="gossip", average_every=PROTO_EVERY)
+        vols, paths = await start_volunteers(n, out_dir, phase, model=model, batch_size=batch_size,
+                                             averaging="gossip", average_every=PROTO_EVERY, **kw)
         try:
             recs = [instrument(v, i) for i, v in enumerate(vols)]
-            return (vols, paths, recs, *await train_until(vols, recs, "gossip"))
+            return (vols, paths, recs, *await train_until(vols, recs, phase))
         finally:
             await asyncio.gather(*(v.stop() for v in vols))
 
     vols, paths, recs, summaries, run_s, launches = asyncio.run(run())
-    row = {"phase": "gossip", "model": "gpt2_small", "batch_size": 8, "wire": "bf16", "average_every": PROTO_EVERY,
-           "gather_timeout": PROTO_GATHER_S,
+    row = {"phase": phase, "model": model, "volunteers": n, "batch_size": batch_size, "wire": "bf16",
+           "average_every": PROTO_EVERY, "gather_timeout": PROTO_GATHER_S,
            "run_s": run_s, "exchanges_ok": exchanges, "rounds_ok": [s["rounds_ok"] for s in summaries],
            "rounds_skipped": [s["rounds_skipped"] for s in summaries],
-           "mix_s": [[c["s"] for c in r.calls if c["ok"]] for r in recs], "launches": launches}
-    row.update(proto_checks("gossip", vols, summaries, paths, launches, failures))
+           "mix_s": [[c["s"] for c in r.calls if c["ok"]] for r in recs], "launches": launches,
+           "params": vols[0].averager._specs and sum(sp.size for sp in vols[0].averager._specs),
+           "init_memory": [v.init_memory for v in vols]}
+    row.update(proto_checks(phase, vols, summaries, paths, launches, failures, model, kw.get("model_overrides")))
     if min(exchanges) < GOSSIP_MIXES:
-        failures.append(f"gossip: successful exchanges {exchanges} < {GOSSIP_MIXES} each")
+        failures.append(f"{phase}: successful exchanges {exchanges} < {GOSSIP_MIXES} each")
     # K4: each successful exchange encodes the caller's buffer and the reply.
-    k4_check("gossip", launches, 2 * sum(exchanges), failures)
+    k4_check(phase, launches, 2 * sum(exchanges), failures)
     values = []
     for i, recent in enumerate(mixes):
         for m in recent:
-            if served[1 - i].get(m["xid"]) is None:
-                failures.append(f"gossip: volunteer {i}'s exchange {m['xid']} not seen served")
+            if m["partner"] is None:
+                failures.append(f"{phase}: volunteer {i}'s exchange {m['xid']} not seen served")
                 continue
-            my_w, mine = served[1 - i][m["xid"]]
+            my_w, mine = m["partner"]
             want = (m["pre_w"] * m["pre"].astype(np.float64) + my_w * mine) / (m["pre_w"] + my_w)
             err = np.abs(m["post"] - want)
             lim = proto_limit(PROTO_STAGES["gossip"], np.maximum(np.abs(m["pre"]), np.abs(mine)))
@@ -1861,13 +1934,13 @@ def gossip_phase() -> dict:
                  "finite": bool(np.isfinite(m["post"]).all())}
             values.append(v)
             if not (v["finite"] and v["limit_used"] <= 1.0 and m["post_w"] == m["pre_w"] + my_w):
-                failures.append(f"gossip: mix outside its tolerance: {v}")
+                failures.append(f"{phase}: mix outside its tolerance: {v}")
     if not values:
-        failures.append("gossip: no mix recorded with its partner's served half")
+        failures.append(f"{phase}: no mix recorded with its partner's served half")
     row["values"] = values
     emit(row)
     if failures:
-        raise AssertionError(f"gossip phase: {failures}")
+        raise AssertionError(f"{phase} phase: {failures}")
     return launches
 
 
@@ -1965,57 +2038,145 @@ def butterfly_phase() -> dict:
     return launches
 
 
-def byzantine_phase() -> dict:
+def bits_fingerprint(tree) -> list:
+    """Per leaf, two int64 sums over its bit patterns (plain, and weighted
+    by position mod 8191): any change of one element changes both. In
+    slices of 2^26 elements, so the int64 copy stays small."""
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_leaves
+
+    itype = {2: torch.int16, 4: torch.int32}
+    out = []
+    for leaf in tree_leaves(tree):
+        flat = leaf.detach().reshape(-1).view(itype[leaf.element_size()])
+        s1 = s2 = 0
+        for lo in range(0, flat.numel(), 1 << 26):
+            c = flat[lo: lo + (1 << 26)].to(torch.int64)
+            w = (torch.arange(lo, lo + c.numel(), device=c.device) % 8191) + 1
+            s1 += int(c.sum())
+            s2 += int((c * w).sum())
+        out.append((s1, s2))
+    return out
+
+
+class CardMemorySampler:
+    """The card's used memory (all processes: ``cuda.mem_get_info``) sampled
+    every ``period`` s on a thread while the ``with`` block runs; ``peak``."""
+
+    def __init__(self, period: float = 0.5):
+        import threading
+
+        self.period, self.peak, self._stop = period, 0, threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            free, total = torch.cuda.mem_get_info()
+            self.peak = max(self.peak, total - free)
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(10)
+
+
+def byzantine_phase(model: str = "gpt2_small", batch_size: int = 8, phase: str = "byzantine",
+                    overrides=None, param_dtype=None, lr=None) -> dict:
     """Byzantine full-mesh rounds with the trimmed mean and the resilience
-    layer: two honest full-width volunteers in this process and an attacker,
-    a ``run_volunteer_torch.py`` process with ``DVC_CHAOS_CONTRIB_SCALE`` =
+    layer: two honest full-width volunteers of ``model`` in this process
+    (gpt2_small, batch 8 by default) and an attacker, a
+    ``run_volunteer_torch.py`` process with ``DVC_CHAOS_CONTRIB_SCALE`` =
     ``BYZ_SCALE`` (its real tree, scaled). Trim 1 of 3 is the coordinate
     median, which the attacker cannot move outside the honest pair; each
     honest policy must record rejections of the attacker, each report carry
-    the controller's state. The attacker must exit 0 on SIGTERM."""
+    the controller's state. The attacker must exit 0 on SIGTERM. A model
+    whose bundle averages a subtree (llama_lora: the adapters) is also held
+    to it: each contribution's wire bytes are the subtree's in bf16, each
+    round sends about two of them, and the rest of the params (the frozen
+    base) is bit-unchanged after training on each honest volunteer."""
     import os
     import signal
 
     import numpy as np
 
+    from distributedvolunteercomputing_tpu_torch.swarm.transport import _payload_len
+
     out_dir = HERE / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     failures = []
-    attacker_id = "byzantineX"
-    att_metrics, att_log = out_dir / "byzantine_attacker.jsonl", out_dir / "byzantine_attacker.log"
+    attacker_id = f"{phase}X"
+    att_metrics, att_log = out_dir / f"{phase}_attacker.jsonl", out_dir / f"{phase}_attacker.log"
     att_metrics.unlink(missing_ok=True)
     rejections = [collections.Counter(), collections.Counter()]
+    packs = [[], []]  # per honest volunteer: (payload elements, wire bytes) of each contribution
+    sent = [[], []]  # per honest volunteer: transport bytes sent during each averaging call
+    overrides = dict(overrides or {})
     kw = dict(averaging="byzantine", method="trimmed_mean", resilience=True, average_every=PROTO_EVERY,
-              min_group=3, max_group=3)
+              min_group=3, max_group=3, model=model, batch_size=batch_size, model_overrides=overrides,
+              param_dtype=param_dtype, **({"lr": lr} if lr is not None else {}))
+    subtree = model == "llama_lora"
 
     def attacker_argv(addr):
-        return [sys.executable, str(HERE / "run_volunteer_torch.py"), "--model", "gpt2_small", "--batch-size", "8",
+        argv = [sys.executable, str(HERE / "run_volunteer_torch.py"), "--model", model,
+                "--batch-size", str(batch_size),
                 "--averaging", "byzantine", "--method", "trimmed_mean", "--resilience", "--wire", "bf16",
                 "--average-every", str(PROTO_EVERY), "--no-overlap", "--min-group", "3", "--max-group", "3",
                 "--gather-timeout", str(PROTO_GATHER_S),
                 "--mesh-codec", "mesh", "--coordinator", addr, "--peer-id", attacker_id, "--seed", "9",
                 "--steps", "100000", "--metrics", str(att_metrics)]
+        for k, v in overrides.items():
+            argv += ["--model-override", f"{k}={json.dumps(v)}"]
+        if param_dtype:
+            argv += ["--param-dtype", param_dtype]
+        if lr is not None:
+            argv += ["--lr", str(lr)]
+        return argv
 
     def instrument(vol, i):
-        policy = vol.resilience_policy
-        record = policy.record_rejection
+        policy, avg = vol.resilience_policy, vol.averager
+        record, pack = policy.record_rejection, avg._pack_and_compress
 
         def counted(peer):
             rejections[i][peer] += 1
             return record(peer)
 
+        async def recorded_pack(tree):
+            out = await pack(tree)
+            packs[i].append((int(out[0].size), _payload_len(out[1])))
+            return out
+
         policy.record_rejection = counted
-        return ProtoRecorder(vol)
+        avg._pack_and_compress = recorded_pack
+        rec = ProtoRecorder(vol)
+        sent_before = [0]
+
+        def before():
+            sent_before[0] = vol.transport.bytes_sent
+
+        def after(call, result):
+            call["bytes_sent"] = vol.transport.bytes_sent - sent_before[0]
+            sent[i].append(call["bytes_sent"])
+
+        rec.before, rec.after = before, after
+        return rec
+
+    def frozen(vol):
+        """The params outside the averaged subtree (llama_lora: the base)."""
+        return vol.trainer.state.params["base"]
 
     async def run():
-        vols, paths = await start_volunteers(1, out_dir, "byzantine", **kw)
+        vols, paths = await start_volunteers(1, out_dir, phase, **kw)
         addr = "%s:%d" % vols[0].transport.addr
         attacker = await asyncio.create_subprocess_exec(
             *attacker_argv(addr), cwd=str(HERE), env={**os.environ, "DVC_CHAOS_CONTRIB_SCALE": BYZ_SCALE},
             stdout=asyncio.subprocess.PIPE, stderr=open(att_log, "w"))
         out = b""
+        extra = {}
         try:
-            more, more_paths = await start_volunteers(1, out_dir, "byzantine", first=1, coordinator=addr, **kw)
+            more, more_paths = await start_volunteers(1, out_dir, phase, first=1, coordinator=addr, **kw)
             vols += more
             paths += more_paths
             deadline = time.monotonic() + PROTO_WAIT_S
@@ -2026,7 +2187,17 @@ def byzantine_phase() -> dict:
             recs = [instrument(v, i) for i, v in enumerate(vols)]
             for r in recs:
                 r.done = lambda _r: min(len(x.full_rounds(3, 2)) for x in recs) >= BYZ_ROUNDS
-            summaries, run_s, launches = await train_until(vols, recs, "byzantine")
+            if subtree:
+                extra["base_before"] = [bits_fingerprint(frozen(v)) for v in vols]
+                extra["init_memory"] = [v.init_memory for v in vols]
+            cuda_sync()
+            torch.cuda.reset_peak_memory_stats()
+            with CardMemorySampler() as mem:
+                summaries, run_s, launches = await train_until(vols, recs, phase)
+            extra["card_used_peak_bytes"] = mem.peak
+            extra["max_memory_allocated_this_process"] = torch.cuda.max_memory_allocated()
+            if subtree:
+                extra["base_after"] = [bits_fingerprint(frozen(v)) for v in vols]
             reports = [v._build_report() for v in vols]
             policies = [v.resilience_policy.stats() for v in vols]
         finally:
@@ -2040,14 +2211,15 @@ def byzantine_phase() -> dict:
             except asyncio.TimeoutError:
                 attacker.kill()
                 out, _ = await attacker.communicate()
-                failures.append("byzantine: the attacker did not exit within 180 s of SIGTERM")
+                failures.append(f"{phase}: the attacker did not exit within 180 s of SIGTERM")
         done = [ln for ln in out.decode().splitlines() if ln.startswith("VOLUNTEER_DONE ")]
         att = json.loads(done[-1].split(" ", 1)[1]) if done else None
-        return vols, paths, recs, summaries, run_s, launches, reports, policies, attacker.returncode, att
+        return vols, paths, recs, summaries, run_s, launches, reports, policies, attacker.returncode, att, extra
 
-    vols, paths, recs, summaries, run_s, launches, reports, policies, att_rc, att = asyncio.run(run())
+    vols, paths, recs, summaries, run_s, launches, reports, policies, att_rc, att, extra = asyncio.run(run())
     full = [r.full_rounds(3, 2) for r in recs]
-    row = {"phase": "byzantine", "model": "gpt2_small", "batch_size": 8, "wire": "bf16", "method": "trimmed_mean",
+    row = {"phase": phase, "model": model, "overrides": overrides, "param_dtype": param_dtype,
+           "batch_size": batch_size, "wire": "bf16", "method": "trimmed_mean",
            "resilience": True, "average_every": PROTO_EVERY, "gather_timeout": PROTO_GATHER_S,
            "attacker_scale": float(BYZ_SCALE), "run_s": run_s,
            "rounds_ok": [s["rounds_ok"] for s in summaries], "rounds_skipped": [s["rounds_skipped"] for s in summaries],
@@ -2055,22 +2227,53 @@ def byzantine_phase() -> dict:
            "round_s": [[c["s"] for c in f] for f in full], "rejections": [dict(c) for c in rejections],
            "policies": policies, "controller": [rep.get("controller") for rep in reports],
            "attacker": {"rc": att_rc, **{k: (att or {}).get(k) for k in ("steps", "rounds_ok", "mesh_codec")}},
-           "launches": launches}
-    row.update(proto_checks("byzantine", vols, summaries, paths, launches, failures))
+           "launches": launches, "packs": packs, "bytes_sent_per_call": sent,
+           "card_used_peak_bytes": extra["card_used_peak_bytes"],
+           "max_memory_allocated_this_process": extra["max_memory_allocated_this_process"],
+           "init_memory": [v.init_memory for v in vols]}
+    row.update(proto_checks(phase, vols, summaries, paths, launches, failures, model, overrides))
+    row["steps_per_s"] = [n / run_s for n in row["steps_run"]]
     if min(len(f) for f in full) < BYZ_ROUNDS:
-        failures.append(f"byzantine: rounds all three fed {row['full_rounds']} < {BYZ_ROUNDS} on each honest volunteer")
+        failures.append(f"{phase}: rounds all three fed {row['full_rounds']} < {BYZ_ROUNDS} on each honest volunteer")
     if any(c[attacker_id] < 1 for c in rejections):
-        failures.append(f"byzantine: an honest policy recorded no rejection of the attacker: {row['rejections']}")
+        failures.append(f"{phase}: an honest policy recorded no rejection of the attacker: {row['rejections']}")
     if any(not isinstance(rep.get("controller"), dict) for rep in reports):
-        failures.append("byzantine: a report lacks the controller's state")
+        failures.append(f"{phase}: a report lacks the controller's state")
     if att_rc != 0 or att is None:
-        failures.append(f"byzantine: the attacker exited {att_rc} on SIGTERM: {att_log.read_text()[-3000:]}")
+        failures.append(f"{phase}: the attacker exited {att_rc} on SIGTERM: {att_log.read_text()[-3000:]}")
     att_codec = (att or {}).get("mesh_codec") or {}
     if att_codec.get("backend") != "device" or att_codec.get("ops_host") != 0 or not att_codec.get("ops_mesh"):
-        failures.append(f"byzantine: the attacker's codec ops off the card: {att_codec}")
+        failures.append(f"{phase}: the attacker's codec ops off the card: {att_codec}")
     # K4 per honest volunteer per round: the health probe's slice, one lazy
     # encode per push to each of the two peers, and its own round trip.
-    k4_check("byzantine", launches, 4 * sum(len(f) for f in full), failures)
+    k4_check(phase, launches, 4 * sum(len(f) for f in full), failures)
+    if subtree:
+        from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_leaves
+
+        trainer = vols[0].trainer
+        n_sub = sum(int(x.numel()) for x in tree_leaves(trainer.bundle.avg_select(trainer.state.params)))
+        row["averaged_params"] = n_sub
+        row["frozen_params"] = sum(int(x.numel()) for x in tree_leaves(frozen(vols[0])))
+        row["base_unchanged"] = [a == b for a, b in zip(extra["base_before"], extra["base_after"])]
+        wire = 2 * n_sub  # bf16
+        if not all(p == (n_sub, wire) for ps in packs for p in ps) or not all(packs):
+            failures.append(f"{phase}: contributions are not the averaged subtree's {n_sub} elements "
+                            f"in {wire} wire bytes: {packs}")
+        # Two pushes of one contribution each per round, plus framing and
+        # the round's small RPCs: nowhere near the frozen params' size.
+        sent_full = [[c["bytes_sent"] for c in f] for f in full]
+        row["bytes_sent_per_full_round"] = sent_full
+        if not all(2 * wire <= b <= 3 * wire + (4 << 20) for ss in sent_full for b in ss):
+            failures.append(f"{phase}: bytes sent per full round outside [2, 3] contributions: {sent_full}")
+        if not all(row["base_unchanged"]):
+            failures.append(f"{phase}: the frozen base changed in training: {row['base_unchanged']}")
+        # Each leaf cast as it is made: the init's peak above what it left
+        # resident is one stacked layer and a top-level leaf in f32, never
+        # the whole model in f32.
+        for v in vols:
+            m = v.init_memory
+            if m["peak_bytes"] > m["resident_bytes"] + (2 << 30):
+                failures.append(f"{phase}: init peak {m} holds more than 2 GiB above the resident params")
     by_epoch = collections.defaultdict(dict)
     for i, r in enumerate(recs):
         for b in r.buffers:
@@ -2093,15 +2296,131 @@ def byzantine_phase() -> dict:
             # contributions: a result left unchanged, or one that missed a
             # contribution, differs from the other's.
             if not (v["finite"] and v["outside_max"] <= 0.0 and v["honest_results_bit_equal"]):
-                failures.append(f"byzantine: honest result outside the honest pair or unlike the other's: {v}")
+                failures.append(f"{phase}: honest result outside the honest pair or unlike the other's: {v}")
     if not values:
-        failures.append("byzantine: no round with both honest results recorded")
+        failures.append(f"{phase}: no round with both honest results recorded")
     row["values"] = values
     emit(row)
     if failures:
-        raise AssertionError(f"byzantine phase: {failures}")
+        raise AssertionError(f"{phase} phase: {failures}")
     return launches
 
+
+# ---------------------------------------------------------------------------
+# the model zoo: capability configs 1, 2, 3 and 5, and the ViT
+# ---------------------------------------------------------------------------
+
+VIT_BATCH = 32  # the entry script's default batch
+VIT_STEPS = 8  # the first 2 warm up; samples/s is read over the rest
+# The reference's capability-config rows (experiments/run_matrix.py) at the
+# registry's widths: model, batch, lr, cadence.
+MNIST_ARGV = ["--averaging", "none", "--steps", "300", "--batch-size", "32", "--lr", "0.01", "--target-loss", "0.15"]
+RESNET = dict(model="cifar10_resnet18", batch_size=16, every=10, lr=0.005)
+BERT = dict(model="bert_mlm", n=4, batch_size=16, lr=0.003)
+LLAMA = dict(model="llama_lora", batch_size=1, lr=0.005, param_dtype="bfloat16")
+# K1-K3 on the models' main paths: model -> (shape [B, H, T, D], causal,
+# the layout the model hands the kernels: head-split views of a fused qkv,
+# or Llama's contiguous rotated q and k).
+MODEL_ATTENTION = {
+    "bert_mlm": ((BERT["batch_size"], 12, 512, 64), False, "qkv"),
+    "cifar10_vit": ((VIT_BATCH, 3, 65, 64), False, "qkv"),
+    "llama_lora": ((LLAMA["batch_size"], 32, 4096, 128), True, "contiguous"),
+}
+
+
+def llama2_7b() -> dict:
+    """``LlamaConfig.llama2_7b()`` as registry overrides: the published widths and depth."""
+    from distributedvolunteercomputing_tpu_torch.models.llama import LlamaConfig
+
+    return dataclasses.asdict(LlamaConfig.llama2_7b())
+
+
+def model_kernels_phase(fa, peak) -> dict:
+    """K1-K3 against their plain versions at each model's main-path shape
+    (in the model's layout and contiguous), then timed there beside SDPA
+    and the bound, as at the flagship shape."""
+    out = {}
+    for model, (shape, causal, layout) in MODEL_ATTENTION.items():
+        checks = check_kernels(fa, shape, torch.bfloat16, causal, peak, layout=layout)
+        if layout != "contiguous":
+            check_kernels(fa, shape, torch.bfloat16, causal, peak)
+        times = time_attention(fa, peak, shape=shape, causal=causal, layouts=("contiguous",))["contiguous"]
+        out[model] = {"shape": list(shape), "causal": causal, "checks": checks, "times": times}
+    return out
+
+
+def vit_phase() -> dict:
+    """cifar10_vit at its registry config, one volunteer, no averaging,
+    ``VIT_STEPS`` steps at batch ``VIT_BATCH``: finite losses and K1-K3 at
+    ``flash_per_step`` (24 / 12 / 12 per step); samples/s after the first two
+    steps (``steady_samples_per_sec``, from the metrics' timestamps)."""
+    from distributedvolunteercomputing_tpu_torch.swarm.volunteer import Volunteer, VolunteerConfig
+
+    out_dir = HERE / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "vit_volunteer.jsonl"
+    path.unlink(missing_ok=True)
+    failures = []
+
+    async def run():
+        release_card_memory()
+        vol = Volunteer(VolunteerConfig(model="cifar10_vit", batch_size=VIT_BATCH, averaging="none",
+                                        steps=VIT_STEPS, metrics_path=str(path), peer_id="vit0"))
+        await vol.start()
+        try:
+            cuda_sync()
+            reset_all_launch_counts()
+            t0 = time.perf_counter()
+            summary = await vol.train()
+            cuda_sync()
+            return summary, time.perf_counter() - t0, proto_launches()
+        finally:
+            await vol.stop()
+
+    summary, run_s, launches = asyncio.run(run())
+    row = {"phase": "vit", "model": "cifar10_vit", "batch_size": VIT_BATCH, "run_s": run_s,
+           "samples_per_sec": summary.get("samples_per_sec"), "launches": launches}
+    records = [r for r in read_jsonl(path) if "loss" in r]
+    losses, ts = [r["loss"] for r in records], [r["t"] for r in records]
+    if len(ts) > 2:
+        row["steady_samples_per_sec"] = (len(ts) - 2) * VIT_BATCH / (ts[-1] - ts[1])
+    k1, k2, k3 = flash_per_step("cifar10_vit")
+    expect = {"flash_fwd": k1 * len(losses), "flash_dq": k2 * len(losses), "flash_dkv": k3 * len(losses)}
+    row.update(losses=losses, launches_expected=expect)
+    if len(losses) != VIT_STEPS or not all(math.isfinite(x) for x in losses):
+        failures.append(f"vit: missing or non-finite losses {losses}")
+    if {k: launches[k] for k in expect} != expect:
+        failures.append(f"vit: K1-K3 launches {launches} != {expect}")
+    emit(row)
+    if failures:
+        raise AssertionError(f"vit phase: {failures}")
+    return launches
+
+
+def mnist_phase() -> dict:
+    """Capability config 1 through the entry script's default model:
+    ``run_volunteer_torch.py`` with no ``--model`` (mnist_mlp) and config
+    1's flags; it must exit 0 having crossed the target loss."""
+    from distributedvolunteercomputing_tpu_torch.models import common, get_model
+
+    out_dir = HERE / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    metrics = out_dir / "mnist_volunteer.jsonl"
+    metrics.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(HERE / "run_volunteer_torch.py"), *MNIST_ARGV, "--metrics",
+                           str(metrics)], cwd=str(HERE), capture_output=True, text=True, timeout=300)
+    wall_s = time.perf_counter() - t0
+    done = [ln for ln in proc.stdout.splitlines() if ln.startswith("VOLUNTEER_DONE ")]
+    summary = json.loads(done[-1].split(" ", 1)[1]) if done else {}
+    row = {"phase": "mnist", "argv": MNIST_ARGV, "rc": proc.returncode, "wall_s": wall_s,
+           "params": common.count_params(get_model("mnist_mlp").init(torch.Generator())),
+           **{k: summary.get(k) for k in ("steps", "final_loss", "target_crossed_step", "target_crossed_s",
+                                          "samples_per_sec", "wall_time_s")}}
+    emit(row)
+    if proc.returncode != 0 or row["target_crossed_step"] is None:
+        raise AssertionError(f"mnist phase: rc {proc.returncode}, summary {summary}: {proc.stderr[-3000:]}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2581,6 +2900,7 @@ def main() -> int:
     for causal in (False, True):
         check_kernels(fa, D128, torch.bfloat16, causal, peak)
     times = time_attention(fa, peak)
+    model_attention = model_kernels_phase(fa, peak)
 
     launches = trainer_phase(fa)
     codec = codec_phase(peak)
@@ -2592,9 +2912,31 @@ def main() -> int:
     launches.update({k: ring_launches[k] for k in RING_KERNELS})
     life_launches = lifecycle_phase()
     protocols = {"gossip": gossip_phase(), "butterfly": butterfly_phase(), "byzantine": byzantine_phase()}
+    mnist_phase()
+    models = {
+        "vit": vit_phase(),
+        "resnet_sync": averaging_phase(phase="resnet_sync", **RESNET),
+        "bert_gossip": gossip_phase(phase="bert_gossip", **BERT),
+        "llama_byzantine": byzantine_phase(phase="llama_byzantine", overrides=llama2_7b(), **LLAMA),
+    }
 
     def protocol_launches(kname):
         return {phase: counts[kname] for phase, counts in protocols.items()}
+
+    def model_launches(kname):
+        return {phase: counts.get(kname, 0) for phase, counts in models.items()}
+
+    def model_shapes(kname):
+        """K1-K3 at each model's main-path shape: error, device ms, plain,
+        bound and SDPA, as at the flagship shape."""
+        out = {}
+        for model, m in model_attention.items():
+            r, t = m["checks"][kname], m["times"]
+            lib = "sdpa_fwd" if kname == "flash_fwd" else "sdpa_fwd_bwd"
+            out[model] = {"shape": m["shape"], "causal": m["causal"], "max_abs_err": r["max_abs_err"],
+                          "ms": t[kname]["ms"], "plain_ms": t[kname]["plain_ms"], "bound_ms": r["bound_ms"],
+                          "bound_by": r["bound_by"], "library_ms": t[lib]["ms"]}
+        return out
 
     kernels = []
     for kname, (replaces, kid) in KERNELS.items():
@@ -2603,7 +2945,8 @@ def main() -> int:
         kernels.append({
             "name": kname, "id": kid, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[kname], "launches_lifecycle": life_launches[kname],
-            "launches_protocols": protocol_launches(kname), "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
+            "launches_protocols": protocol_launches(kname), "launches_models": model_launches(kname),
+            "shapes_models": model_shapes(kname), "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
             "ms_method": DEVICE_MS_METHOD, "ms_qkv_view": times["qkv"][kname]["ms"],
             "plain_ms": t[kname]["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": t[lib]["ms"], "library_ms_qkv_view": times["qkv"][lib]["ms"],
@@ -2615,6 +2958,7 @@ def main() -> int:
         "name": "bf16_encode", "id": "K4", "route": "cuda", "source": CODEC_SOURCE,
         "replaces": CODEC_KERNELS["bf16_encode"][0], "launches": launches["bf16_encode"],
         "launches_lifecycle": life_launches["bf16_encode"], "launches_protocols": protocol_launches("bf16_encode"),
+        "launches_models": model_launches("bf16_encode"),
         "max_abs_err": codec["encode_max_abs_err"], "n": k4["n"], "ms": k4["ms"], "ms_method": k4["ms_method"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"], "library_call": k4["library_call"],
@@ -2622,7 +2966,7 @@ def main() -> int:
     kernels.append({
         "name": "bf16_fold_chunks", "id": "K5", "route": "cuda", "source": CODEC_SOURCE,
         "replaces": CODEC_KERNELS["bf16_fold_chunks"][0], "launches": launches["bf16_fold_chunks"],
-        "launches_lifecycle": life_launches["bf16_fold_chunks"],
+        "launches_lifecycle": life_launches["bf16_fold_chunks"], "launches_models": model_launches("bf16_fold_chunks"),
         "max_abs_err": max(k5["max_abs_err"], codec["fold_max_abs_err"]),
         "per": f"staged flush of {k5['chunks']} chunks of 1 MiB ({k5['distinct_tiles']} tiles)",
         "ms": k5["device_ms"], "ms_method": "profiler device time of bf16_fold_kernel per flush",
@@ -2636,7 +2980,8 @@ def main() -> int:
         checks = [row["ring_fold_vs_plain" if kid == "K6" else "ring_allgather_vs_plain"] for row in ring.values()]
         kernels.append({
             "name": kname, "id": kid, "route": "cuda", "source": RING_SOURCE, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": max(c["max_abs_err"] for rows in checks for c in rows),
+            "launches": launches[kname], "launches_models": model_launches(kname),
+            "max_abs_err": max(c["max_abs_err"] for rows in checks for c in rows),
             "nd": 2, "cross_card": flag["cross_card"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -5,6 +5,10 @@ package's layout (``distributedvolunteercomputing_tpu/models/common.py``):
 dense weights ``[d_in, d_out]``, block weights stacked on a leading layer
 axis, params stored f32. Compute runs in bf16 on the card and f32 on the CPU
 (``utils.torchenv.compute_dtype``), chosen from the device of the tensors.
+
+Every ``init`` takes ``dtype``, the params' storage dtype (None: f32), and
+casts each leaf as it is made, one stacked layer at a time: a bf16 model
+never exists whole in f32 (Llama-2-7B would be 27 GB of it).
 """
 
 from __future__ import annotations
@@ -15,7 +19,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_leaves, tree_map
+from distributedvolunteercomputing_tpu_torch.utils.pytree import (
+    cast_floating,
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 from distributedvolunteercomputing_tpu_torch.utils.torchenv import compute_dtype
 
 Params = Dict[str, Any]
@@ -60,6 +70,16 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["g"] + p["b"]).to(x.dtype)
 
 
+def rmsnorm_init(d: int, device: torch.device) -> Params:
+    return {"g": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * p["g"]).to(x.dtype)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
@@ -79,10 +99,29 @@ def softmax_xent(
     return nll.mean()
 
 
-def stacked_init(layer_init: Callable[[torch.Generator], Params], gen: torch.Generator, n_layers: int) -> Params:
-    """``n_layers`` identical layers as ONE tree stacked on a leading axis."""
-    layers = [layer_init(gen) for _ in range(n_layers)]
-    return tree_map(lambda *xs: torch.stack(xs), *layers)
+def cast(tree: Any, dtype: Optional[torch.dtype]) -> Any:
+    """Every floating leaf of ``tree`` in ``dtype`` (None: unchanged)."""
+    return tree if dtype is None else cast_floating(tree, dtype)
+
+
+def stacked_init(
+    layer_init: Callable[[torch.Generator], Params],
+    gen: torch.Generator,
+    n_layers: int,
+    dtype: Optional[torch.dtype] = None,
+) -> Params:
+    """``n_layers`` identical layers as ONE tree stacked on a leading axis.
+
+    Each layer is drawn in f32 and written into the stack in ``dtype``, so
+    the f32 transient is one layer, not the stack."""
+    first = cast(layer_init(gen), dtype)
+    leaves, treedef = tree_flatten(first)
+    stacks = [torch.empty((n_layers,) + tuple(x.shape), dtype=x.dtype, device=x.device) for x in leaves]
+    for i in range(n_layers):
+        layer_leaves = leaves if i == 0 else tree_leaves(cast(layer_init(gen), dtype))
+        for stack, x in zip(stacks, layer_leaves):
+            stack[i].copy_(x)
+    return tree_unflatten(treedef, stacks)
 
 
 def layer(blocks: Params, i: int) -> Params:
@@ -128,9 +167,12 @@ class _ProjectF32(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # A frozen head (LoRA's base) needs no [d, V] weight product.
         x, w = ctx.saved_tensors
         g = g.to(x.dtype)
-        return torch.mm(g, w.t()), torch.mm(x.t(), g)
+        dx = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(x.t(), g) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def project_vocab(x: torch.Tensor, head: torch.Tensor, head_layout: str) -> torch.Tensor:
@@ -180,3 +222,11 @@ def lm_xent_chunked(
             nll_sum = nll_sum + nll.sum()
             denom = denom + nll.numel()
     return nll_sum / torch.clamp(denom, min=1.0)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (logits.argmax(-1) == labels).float().mean()
+
+
+def count_params(params: Params) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(params))

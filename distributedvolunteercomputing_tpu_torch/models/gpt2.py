@@ -10,7 +10,7 @@ time chunks and never builds the [B, T, V] logits.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -53,14 +53,15 @@ def _layer_init(gen: torch.Generator, cfg: GPT2Config) -> common.Params:
     }
 
 
-def init(gen: torch.Generator, cfg: GPT2Config) -> common.Params:
-    """Random params on ``gen.device`` (the reference's scales; the bits
-    differ from ``jax.random`` — carry JAX params over with models.convert)."""
+def init(gen: torch.Generator, cfg: GPT2Config, dtype: Optional[torch.dtype] = None) -> common.Params:
+    """Random params on ``gen.device`` in ``dtype`` (the reference's scales;
+    the bits differ from ``jax.random`` — carry JAX params over with
+    models.convert)."""
     return {
-        "wte": common.embed_init(gen, cfg.vocab, cfg.d_model),
-        "wpe": common.embed_init(gen, cfg.max_len, cfg.d_model, scale=0.01),
-        "blocks": common.stacked_init(lambda g: _layer_init(g, cfg), gen, cfg.n_layers),
-        "ln_f": common.layernorm_init(cfg.d_model, gen.device),
+        "wte": common.cast(common.embed_init(gen, cfg.vocab, cfg.d_model), dtype),
+        "wpe": common.cast(common.embed_init(gen, cfg.max_len, cfg.d_model, scale=0.01), dtype),
+        "blocks": common.stacked_init(lambda g: _layer_init(g, cfg), gen, cfg.n_layers, dtype),
+        "ln_f": common.cast(common.layernorm_init(cfg.d_model, gen.device), dtype),
     }
 
 

@@ -2,12 +2,14 @@
 
 Each bundle closes over its config and exposes:
 
-    init(gen) -> params              on ``gen.device``
+    init(gen, dtype=None) -> params  on ``gen.device``, floating leaves in ``dtype``
     loss_fn(params, batch, rng) -> (loss, metrics)
     make_batch(gen, batch_size) -> synthetic batch on ``gen.device``
     avg_select(params) / avg_merge(params, averaged) -> the averaged subtree
 
-Only the GPT-2 family is ported so far; other names raise ``KeyError``.
+``avg_select`` returns the live tensors of the subtree (no copy): the
+trainer writes merged payloads into them in place. ``gpt2_moe`` is not
+ported yet and raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ import torch
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
 
-# The JAX package's other models, ported in later slices.
-_NOT_PORTED = ("mnist_mlp", "cifar10_resnet18", "cifar10_vit", "bert_mlm", "gpt2_moe", "llama_lora")
+# The JAX package's expert-parallel model, ported with its sharding slice.
+_NOT_PORTED = ("gpt2_moe",)
 
 
 def _identity_select(params: Any) -> Any:
@@ -36,13 +38,90 @@ def _identity_merge(params: Any, averaged: Any) -> Any:
 class ModelBundle:
     name: str
     config: Any
-    init: Callable[[torch.Generator], Any]
+    init: Callable[..., Any]
     loss_fn: Callable[[Any, Batch, torch.Generator], Tuple[torch.Tensor, Metrics]]
     make_batch: Callable[[torch.Generator, int], Batch]
     # What the swarm averages: the payload subtree of the params and how the
     # averaged result merges back (identity for the GPT-2 family).
     avg_select: Callable[[Any], Any] = _identity_select
     avg_merge: Callable[[Any, Any], Any] = _identity_merge
+
+
+def _mlp(**overrides: Any) -> ModelBundle:
+    from distributedvolunteercomputing_tpu_torch.models import mlp
+    from distributedvolunteercomputing_tpu_torch.training import data
+
+    cfg = dataclasses.replace(mlp.MLPConfig(), **overrides)
+    return ModelBundle(
+        name="mnist_mlp",
+        config=cfg,
+        init=lambda gen, dtype=None: mlp.init(gen, cfg, dtype),
+        loss_fn=lambda p, b, rng: mlp.loss_fn(p, b, rng, cfg),
+        make_batch=lambda gen, bs: data.synthetic_image_batch(gen, bs, shape=(28, 28, 1), n_classes=cfg.n_classes),
+    )
+
+
+def _resnet18(**overrides: Any) -> ModelBundle:
+    from distributedvolunteercomputing_tpu_torch.models import resnet
+    from distributedvolunteercomputing_tpu_torch.training import data
+
+    cfg = dataclasses.replace(resnet.ResNetConfig(), **overrides)
+    return ModelBundle(
+        name="cifar10_resnet18",
+        config=cfg,
+        init=lambda gen, dtype=None: resnet.init(gen, cfg, dtype),
+        loss_fn=lambda p, b, rng: resnet.loss_fn(p, b, rng, cfg),
+        make_batch=lambda gen, bs: data.synthetic_image_batch(gen, bs, shape=(32, 32, 3), n_classes=cfg.n_classes),
+    )
+
+
+def _vit(**overrides: Any) -> ModelBundle:
+    from distributedvolunteercomputing_tpu_torch.models import vit
+    from distributedvolunteercomputing_tpu_torch.training import data
+
+    cfg = dataclasses.replace(vit.ViTConfig(), **overrides)
+    return ModelBundle(
+        name="cifar10_vit",
+        config=cfg,
+        init=lambda gen, dtype=None: vit.init(gen, cfg, dtype),
+        loss_fn=lambda p, b, rng: vit.loss_fn(p, b, rng, cfg),
+        make_batch=lambda gen, bs: data.synthetic_image_batch(
+            gen, bs, shape=(cfg.image_size, cfg.image_size, cfg.channels), n_classes=cfg.n_classes
+        ),
+    )
+
+
+def _bert(**overrides: Any) -> ModelBundle:
+    from distributedvolunteercomputing_tpu_torch.models import bert
+    from distributedvolunteercomputing_tpu_torch.training import data
+
+    cfg = dataclasses.replace(bert.BertConfig(), **overrides)
+    return ModelBundle(
+        name="bert_mlm",
+        config=cfg,
+        init=lambda gen, dtype=None: bert.init(gen, cfg, dtype),
+        loss_fn=lambda p, b, rng: bert.loss_fn(p, b, rng, cfg),
+        make_batch=lambda gen, bs: data.synthetic_mlm_batch(
+            gen, bs, seq_len=cfg.max_len, vocab=cfg.vocab, mask_id=bert.MASK_ID
+        ),
+    )
+
+
+def _llama_lora(**overrides: Any) -> ModelBundle:
+    from distributedvolunteercomputing_tpu_torch.models import llama
+    from distributedvolunteercomputing_tpu_torch.training import data
+
+    cfg = dataclasses.replace(llama.LlamaConfig(), **overrides)
+    lora_on = cfg.lora_rank > 0
+    return ModelBundle(
+        name="llama_lora",
+        config=cfg,
+        init=lambda gen, dtype=None: llama.init(gen, cfg, dtype),
+        loss_fn=lambda p, b, rng: llama.loss_fn(p, b, rng, cfg),
+        make_batch=lambda gen, bs: data.synthetic_lm_batch(gen, bs, seq_len=cfg.max_len, vocab=cfg.vocab),
+        avg_select=llama.lora_subtree if lora_on else _identity_select,
+        avg_merge=llama.with_lora_subtree if lora_on else _identity_merge,
+    )
 
 
 def _gpt2(preset: str, **overrides: Any) -> ModelBundle:
@@ -54,13 +133,18 @@ def _gpt2(preset: str, **overrides: Any) -> ModelBundle:
     return ModelBundle(
         name=f"gpt2_{preset}",
         config=cfg,
-        init=lambda gen: gpt2.init(gen, cfg),
+        init=lambda gen, dtype=None: gpt2.init(gen, cfg, dtype),
         loss_fn=lambda p, b, rng: gpt2.loss_fn(p, b, rng, cfg),
         make_batch=lambda gen, bs: data.synthetic_lm_batch(gen, bs, seq_len=cfg.max_len, vocab=cfg.vocab),
     )
 
 
 _REGISTRY: Dict[str, Callable[..., ModelBundle]] = {
+    "mnist_mlp": _mlp,
+    "cifar10_resnet18": _resnet18,
+    "cifar10_vit": _vit,
+    "bert_mlm": _bert,
+    "llama_lora": _llama_lora,
     "gpt2_small": lambda **kw: _gpt2("small", **kw),
     "gpt2_medium": lambda **kw: _gpt2("medium", **kw),
     "gpt2_large": lambda **kw: _gpt2("large", **kw),

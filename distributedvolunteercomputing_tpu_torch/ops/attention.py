@@ -104,3 +104,19 @@ def multi_head_attention(
         causal=causal, mask=mask,
     )
     return merge_heads(out)
+
+
+def rope(x: torch.Tensor, positions: Optional[torch.Tensor] = None, base: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding over the last dim of ``x`` [B, H, T, D], in
+    f32. The rotated pairs are the interleaved lanes ``(x[..., 2i],
+    x[..., 2i + 1])``, as the reference pairs them (not the rotate-half
+    convention)."""
+    d, t = x.shape[-1], x.shape[-2]
+    if positions is None:
+        positions = torch.arange(t, device=x.device)
+    freqs = base ** (-torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d)
+    angles = positions[:, None].float() * freqs[None, :]  # [T, D/2]
+    cos, sin = angles.cos(), angles.sin()
+    x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).reshape(x.shape)
+    return out.to(x.dtype)

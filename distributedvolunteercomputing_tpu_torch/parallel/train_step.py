@@ -114,13 +114,15 @@ def dp_grad_half(
     if len(batches) != len(state.replicas):
         raise ValueError(f"{len(batches)} batch shares for {len(state.replicas)} replicas")
     per_rank = [grad_half(loss_fn, st, b, accum_steps) for st, b in zip(state.replicas, batches)]
-    dev0 = per_rank[0][0][0].device
+    dev0 = per_rank[0][1]["loss"].device
     inv = 1.0 / len(per_rank)
-    grads = [g.clone() for g in per_rank[0][0]]
+    # A leaf the loss does not reach has None on every rank (training/steps.py).
+    grads = [None if g is None else g.clone() for g in per_rank[0][0]]
     for g_r, _ in per_rank[1:]:
         for acc, g in zip(grads, g_r):
-            acc.add_(g.to(dev0))
-    grads = [g * inv for g in grads]
+            if acc is not None:
+                acc.add_(g.to(dev0))
+    grads = [None if g is None else g * inv for g in grads]
     metrics: Metrics = {
         key: torch.stack([m[key].to(dev0) for _, m in per_rank]).sum(0) * inv
         for key in per_rank[0][1]
@@ -149,7 +151,7 @@ def make_sharded_train_step(
         if len(state.replicas) != len(ranks):
             raise ValueError(f"{len(state.replicas)} replicas for a mesh of dp={len(ranks)}")
         grads, metrics = dp_grad_half(loss_fn, state, batches, accum_steps)
-        shares = [grads if dev == ranks[0] else [g.to(dev) for g in grads] for dev in ranks]
+        shares = [grads if dev == ranks[0] else [None if g is None else g.to(dev) for g in grads] for dev in ranks]
         for st, g in zip(state.replicas, shares):
             apply_half(tx, st, g)
         return state, metrics

@@ -537,8 +537,8 @@ class Volunteer:
         )
 
         def provider():
-            step, params = self.trainer.host_snapshot()
-            tree = bundle.avg_select(params)
+            # The snapshot holds the avg_select subtree already.
+            step, tree = self.trainer.host_snapshot()
             # Fault injection (test-only): DVC_CHAOS_STATE_POISON="lie,scale"
             # makes this volunteer a Byzantine state provider: it serves step
             # + lie (pulls go to the freshest provider) and its tree scaled.
@@ -557,7 +557,7 @@ class Volunteer:
         pull_s = time.perf_counter() - t0
         if pulled is not None:
             step, subtree = pulled
-            self.trainer.adopt_params(bundle.avg_merge(self.trainer.state.params, subtree), step=step)
+            self.trainer.adopt_params(subtree, step=step)
         self.trainer.metrics.record_event(
             int(self.trainer.state.step), "state_pull",
             {"pulled": pulled is not None, "from_step": step0, "s": pull_s,
@@ -568,7 +568,7 @@ class Volunteer:
             # Publish before the first averaging point, so exchanges from
             # faster peers succeed while this one is still starting.
             _, snap = self.trainer.host_snapshot()
-            self.averager.publish(bundle.avg_select(snap))
+            self.averager.publish(snap)
 
     def _build_resilience_layer(self) -> None:
         """The phi-accrual detector and the adaptive policy and, with

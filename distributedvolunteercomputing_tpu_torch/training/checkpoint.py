@@ -4,7 +4,8 @@ orbax).
 
 Volunteer churn only makes sense if a stopped volunteer can come back
 (preemption -> restart on a fresh machine): ``save`` flushes the full train
-state (params, optimizer moments, step, the step generator's state),
+state (params, optimizer moments, step, the step generator's state; a
+frozen leaf's moment slots are None, ``training/optim.py``),
 ``maybe_restore`` loads the newest snapshot if one exists. Peer-pull resume
 (fetching newer params from live peers after a long absence) lives in
 swarm.state_sync.
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from distributedvolunteercomputing_tpu_torch.utils.logging import errstr, get_logger
-from distributedvolunteercomputing_tpu_torch.utils.pytree import torch_dtype
+from distributedvolunteercomputing_tpu_torch.utils.pytree import torch_dtype, tree_leaves
 
 log = get_logger(__name__)
 
@@ -346,9 +347,11 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _copy_into(dst: Any, src: Any, what: str) -> None:
+def _copy_into(dst: Any, src: Any, what: str, device: Optional[torch.device] = None) -> None:
     """Copy a loaded tree into the live one in place (casting to the live
-    dtype), refusing a structure or shape that differs."""
+    dtype), refusing a structure or shape that differs. A list slot may be
+    None on either side (optimizer moments not made yet, ``training/optim.py``):
+    a copy of the loaded tensor on ``device``, or None, takes the slot."""
     if isinstance(dst, torch.Tensor):
         if not isinstance(src, torch.Tensor) or tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"checkpoint {what}: {getattr(src, 'shape', type(src))} != live {tuple(dst.shape)}")
@@ -358,14 +361,19 @@ def _copy_into(dst: Any, src: Any, what: str) -> None:
             raise ValueError(f"checkpoint {what}: keys differ from the live state")
         for k in dst:
             if isinstance(dst[k], (torch.Tensor, dict, list)):
-                _copy_into(dst[k], src[k], f"{what}/{k}")
+                _copy_into(dst[k], src[k], f"{what}/{k}", device)
             else:
                 dst[k] = src[k]
     elif isinstance(dst, list):
         if not isinstance(src, (list, tuple)) or len(src) != len(dst):
             raise ValueError(f"checkpoint {what}: length differs from the live state")
         for i, (d, s) in enumerate(zip(dst, src)):
-            _copy_into(d, s, f"{what}[{i}]")
+            if d is None or s is None:
+                if not (s is None or isinstance(s, torch.Tensor)):
+                    raise ValueError(f"checkpoint {what}[{i}]: {type(s)} in a moment slot")
+                dst[i] = None if s is None else s.to(device, copy=True)
+            else:
+                _copy_into(d, s, f"{what}[{i}]", device)
     else:
         raise TypeError(f"checkpoint {what}: cannot restore into {type(dst)}")
 
@@ -391,7 +399,8 @@ def maybe_restore(trainer, ckpt_dir: str) -> bool:
         # Every replica of a mesh trainer (one without a mesh).
         for replica in trainer._replicas:
             _copy_into(replica.params, params, "params")
-            _copy_into(replica.opt_state, opt_state, "opt_state")
+            device = tree_leaves(replica.params)[0].device
+            _copy_into(replica.opt_state, opt_state, "opt_state", device)
             replica.step = int(restored["step"])
             replica.rng.set_state(rng_state)
     _maybe_restore_outer_state(trainer, path)

@@ -8,13 +8,27 @@ so the bits differ from ``jax.random``; the task is the same. The token chain
 is a composition of affine maps mod vocab, built with a parallel prefix scan
 on the generator's device (the trainer draws on the host and moves finished
 batches to the card).
+
+The image task is the reference's too: class-conditional Gaussian blobs
+around fixed per-class prototypes. The reference draws the prototypes from a
+fixed ``jax.random`` key, whose bits torch cannot reproduce, so the arrays
+for the zoo's two image shapes are committed beside this module
+(``prototypes/image_<H>x<W>x<C>_<classes>.npy``, written once from the
+reference's ``_image_prototypes``): port and JAX volunteers train the same
+task. Any other shape draws its prototypes from a fixed torch seed.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from pathlib import Path
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
+
+_PROTO_DIR = Path(__file__).resolve().parent / "prototypes"
+_PROTO_SEED = 1234  # class prototypes are global constants of the task
 
 # The 4 successor maps: next = (tok * mult + off) % vocab.
 _SUCC_MULT = (3, 5, 7, 11)
@@ -64,3 +78,34 @@ def synthetic_lm_batch(
     """Causal LM batch: predict tokens[1:] from tokens[:-1]."""
     toks = synthetic_token_stream(gen, batch_size, seq_len + 1, vocab)
     return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+@functools.lru_cache(maxsize=None)
+def image_prototypes(shape: Tuple[int, ...], n_classes: int) -> torch.Tensor:
+    """[n_classes, *shape] f32 on the host: the reference's for the committed
+    shapes, else from a fixed torch seed."""
+    path = _PROTO_DIR / f"image_{'x'.join(str(d) for d in shape)}_{n_classes}.npy"
+    if path.exists():
+        return torch.from_numpy(np.load(path))
+    gen = torch.Generator().manual_seed(_PROTO_SEED)
+    return torch.randn((n_classes,) + tuple(shape), generator=gen)
+
+
+def synthetic_image_batch(
+    gen: torch.Generator, batch_size: int, shape: Tuple[int, ...], n_classes: int, noise: float = 0.3
+) -> Dict[str, torch.Tensor]:
+    dev = gen.device
+    y = torch.randint(0, n_classes, (batch_size,), generator=gen, device=dev)
+    protos = image_prototypes(tuple(shape), n_classes).to(dev)
+    x = protos.index_select(0, y) + noise * torch.randn((batch_size,) + tuple(shape), generator=gen, device=dev)
+    return {"x": x, "y": y}
+
+
+def synthetic_mlm_batch(
+    gen: torch.Generator, batch_size: int, seq_len: int, vocab: int, mask_id: int, mask_rate: float = 0.15
+) -> Dict[str, torch.Tensor]:
+    """BERT-style MLM batch: 15% of positions replaced by [MASK], predict originals."""
+    toks = synthetic_token_stream(gen, batch_size, seq_len, vocab)
+    mask = torch.rand(toks.shape, generator=gen, device=gen.device) < mask_rate
+    inputs = torch.where(mask, mask_id, toks)
+    return {"tokens": inputs, "targets": toks, "mask": mask.float()}

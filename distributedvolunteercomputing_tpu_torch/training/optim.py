@@ -16,6 +16,15 @@ details that differ from PyTorch's own optimizers are kept:
 
 Updates are applied to the parameter tensors in place (the counterpart of
 the reference donating its state to the jitted step).
+
+Frozen leaves: a leaf whose gradient is None (the loss does not reach it,
+as LoRA's base) gets no moments and no update. The moments of a leaf are
+made, as zeros, at its first gradient; ``init`` makes none. optax keeps
+zero moments for every leaf, which its zero gradients leave at zero, so
+the params and the live moments are the same. The state's layout differs:
+``mu`` / ``nu`` / ``trace`` hold None for a leaf without moments (the
+checkpoint saves and restores that). optax's weight decay would still move
+a frozen leaf, so ``adamw`` with ``weight_decay > 0`` raises on one.
 """
 
 from __future__ import annotations
@@ -53,10 +62,11 @@ def _warmup_cosine(peak: float, warmup: int, decay_steps: int) -> Schedule:
     return fn
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over all tensors, in f32 (optax.global_norm)."""
+def global_norm(tensors: List[Optional[torch.Tensor]]) -> torch.Tensor:
+    """sqrt(sum of squares) over all tensors, in f32 (optax.global_norm);
+    None (a frozen leaf's zero gradient) adds nothing."""
     return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors])
+        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors if t is not None])
     )
 
 
@@ -83,32 +93,50 @@ class Optimizer:
         self.b1, self.b2, self.eps = b1, b2, eps
 
     def init(self, params: Any) -> Dict[str, Any]:
-        leaves = tree_leaves(params)
-        state: Dict[str, Any] = {"count": 0}
-        if self.name in ("adam", "adamw"):
-            state["mu"] = [torch.zeros_like(p) for p in leaves]
-            state["nu"] = [torch.zeros_like(p) for p in leaves]
-        else:
-            state["trace"] = [torch.zeros_like(p) for p in leaves]
-        return state
+        """Moments as None per leaf: each is made at the leaf's first gradient."""
+        n = len(tree_leaves(params))
+        names = ("mu", "nu") if self.name in ("adam", "adamw") else ("trace",)
+        return {"count": 0, **{name: [None] * n for name in names}}
+
+    @staticmethod
+    def _moments(state: Dict[str, Any], names, leaves, grads) -> None:
+        """Zero moments for every leaf that has a gradient and none yet."""
+        for name in names:
+            slots = state[name]
+            if len(slots) != len(leaves):
+                raise ValueError(f"optimizer state holds {len(slots)} {name} slots for {len(leaves)} leaves")
+            for i, (p, g) in enumerate(zip(leaves, grads)):
+                if g is not None and slots[i] is None:
+                    slots[i] = torch.zeros_like(p)
 
     @torch.no_grad()
-    def apply(self, params: Any, grads: List[torch.Tensor], state: Dict[str, Any]) -> None:
+    def apply(self, params: Any, grads: List[Optional[torch.Tensor]], state: Dict[str, Any]) -> None:
         leaves = tree_leaves(params)
+        if self.name == "adamw" and self.weight_decay and any(g is None for g in grads):
+            raise ValueError(
+                "adamw with weight_decay > 0 on a frozen leaf: optax would decay it; "
+                "the port keeps frozen leaves unchanged and supports weight_decay 0 there"
+            )
         if self.grad_clip:
             # Selected on the device: no host sync per step.
             g_norm = global_norm(grads)
             keep = g_norm < self.grad_clip
-            grads = [torch.where(keep, g, g / g_norm.to(g.dtype) * self.grad_clip) for g in grads]
+            grads = [
+                None if g is None else torch.where(keep, g, g / g_norm.to(g.dtype) * self.grad_clip)
+                for g in grads
+            ]
         count = state["count"]
         lr = self.schedule(count)
         if self.name in ("adam", "adamw"):
+            self._moments(state, ("mu", "nu"), leaves, grads)
             # Bias corrections rounded to f32 as optax computes them
             # (1 - 0.999 ** 1 is 4.7e-5 off 0.001 in f32).
             c = count + 1
             bc1 = float(np.float32(1.0) - np.float32(self.b1) ** c)
             bc2 = float(np.float32(1.0) - np.float32(self.b2) ** c)
             for p, g, mu, nu in zip(leaves, grads, state["mu"], state["nu"]):
+                if g is None:
+                    continue
                 mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
                 nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
                 upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
@@ -116,7 +144,10 @@ class Optimizer:
                     upd = upd + self.weight_decay * p
                 p.add_((upd * -lr).to(p.dtype))
         else:
+            self._moments(state, ("trace",), leaves, grads)
             for p, g, tr in zip(leaves, grads, state["trace"]):
+                if g is None:
+                    continue
                 tr.mul_(self.momentum).add_(g)
                 p.add_((tr * -lr).to(p.dtype))
         state["count"] = count + 1

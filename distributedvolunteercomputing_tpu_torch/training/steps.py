@@ -10,7 +10,7 @@ counterpart of the reference donating its state to the jitted step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -37,18 +37,27 @@ class TrainState:
 
 
 def _value_and_grad(loss_fn: LossFn, params: Any, batch: Batch, rng: torch.Generator):
+    """(grads as leaves in tree order, metrics). A leaf the loss does not
+    reach (a frozen base the loss detaches) gets None, never a buffer of
+    zeros: the reference's zero gradient, which adds nothing to the norm
+    and, with weight decay 0, leaves the leaf bit-unchanged."""
     leaves, treedef = tree_flatten(params)
     with torch.enable_grad():
         xs = [p.detach().requires_grad_(True) for p in leaves]
         loss, metrics = loss_fn(tree_unflatten(treedef, xs), batch, rng)
-        grads = torch.autograd.grad(loss, xs, allow_unused=True, materialize_grads=True)
+        grads = torch.autograd.grad(loss, xs, allow_unused=True)
     return list(grads), {k: v.detach() for k, v in metrics.items()}
+
+
+def _add(a: Optional[torch.Tensor], b: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return b if a is None else a if b is None else a + b
 
 
 def grad_half(
     loss_fn: LossFn, state: TrainState, batch: Batch, accum_steps: int = 1
 ) -> Tuple[List[torch.Tensor], Metrics]:
-    """fwd/bwd half of the step: (grads as leaves in tree order, metrics).
+    """fwd/bwd half of the step: (grads as leaves in tree order, None for a
+    leaf the loss does not reach; metrics).
 
     ``accum_steps > 1`` splits the batch's leading dim into microbatches and
     averages their grads and metrics: one big batch's semantics, one
@@ -61,10 +70,10 @@ def grad_half(
         micro = {k: v.chunk(accum_steps, dim=0) for k, v in batch.items()}
         for i in range(accum_steps):
             g, m = _value_and_grad(loss_fn, state.params, {k: v[i] for k, v in micro.items()}, state.rng)
-            g_sum = g if not g_sum else [a + b for a, b in zip(g_sum, g)]
+            g_sum = g if not g_sum else [_add(a, b) for a, b in zip(g_sum, g)]
             m_sum = m if not m_sum else {k: m_sum[k] + m[k] for k in m}
         inv = 1.0 / accum_steps
-        grads = [g * inv for g in g_sum]
+        grads = [None if g is None else g * inv for g in g_sum]
         metrics = {k: v * inv for k, v in m_sum.items()}
     metrics["grad_norm"] = global_norm(grads)
     return grads, metrics

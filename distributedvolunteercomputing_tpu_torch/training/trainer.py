@@ -10,13 +10,22 @@ With a ``mesh`` (``parallel/mesh.py``) the step is data-parallel over its dp
 ranks (``parallel/train_step.py``): the averager reads rank 0's params, and a
 merge writes the averaged params back to every rank.
 
-Concurrent readers (the state-sync provider and the checkpoint writer, off
+Concurrent readers (the state-sync provider and the gossip publisher, off
 the trainer thread) never touch ``state``: the step updates its tensors in
 place. They read ``host_snapshot()``, a host copy taken between steps at
 init, after an adoption or a restore, and at every averaging point (reusing
-the round's own host copy of the params). Gradient averaging, the outer
-optimizer, FSDP and the other mesh axes, multi-step calls and eval come with
-later slices of the port; the constructor does not accept them yet.
+the round's own host copy of the payload).
+
+Everything that crosses to the host is the bundle's ``avg_select`` subtree
+only (LoRA's adapters, the whole tree elsewhere): the round's payload, the
+snapshot, and what a merge or ``adopt_params`` writes back, in place, into
+the live tensors of that subtree. The reference snapshots the whole tree;
+its readers use only the subtree, which the port's snapshot holds. Llama-2-7B
+ships 16.8 MB of f32 adapters per round this way, never its 27 GB base.
+
+Gradient averaging, the outer optimizer, FSDP and the other mesh axes,
+multi-step calls and eval come with later slices of the port; the
+constructor does not accept them yet.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from distributedvolunteercomputing_tpu_torch.training.optim import make_optimize
 from distributedvolunteercomputing_tpu_torch.training.steps import TrainState, make_train_step
 from distributedvolunteercomputing_tpu_torch.utils.logging import errstr, get_logger
 from distributedvolunteercomputing_tpu_torch.utils.pytree import (
-    cast_floating,
+    torch_dtype,
     tree_flatten,
     tree_leaves,
     tree_map,
@@ -44,9 +53,9 @@ from distributedvolunteercomputing_tpu_torch.utils.torchenv import DeviceLike, r
 
 log = get_logger(__name__)
 
-# Averager callback: takes the CURRENT host params tree (numpy leaves) and the
-# step, returns the averaged host tree (or None to keep local params, e.g.
-# when no group formed).
+# Averager callback: takes the CURRENT host payload (the ``avg_select``
+# subtree, numpy leaves) and the step, returns the averaged host payload (or
+# None to keep local params, e.g. when no group formed).
 AveragerFn = Callable[[Any, int], Optional[Any]]
 
 
@@ -116,11 +125,14 @@ class Trainer:
         # ``seed`` is per-volunteer (data order, step rng); ``init_seed`` is
         # task-constant, so every volunteer builds the same initial params.
         self.tx = make_optimizer(optimizer, lr=lr, total_steps=total_steps)
-        params = bundle.init(torch.Generator(device=self.device).manual_seed(init_seed))
+        # Each leaf is cast to ``param_dtype`` as the init makes it: a bf16
+        # model never exists whole in f32 on the device.
+        params = bundle.init(
+            torch.Generator(device=self.device).manual_seed(init_seed),
+            dtype=torch_dtype(param_dtype) if param_dtype else None,
+        )
         # Kept for the checkpoint restore, which re-applies it.
         self.param_dtype = param_dtype
-        if param_dtype:
-            params = cast_floating(params, param_dtype)
         step_rng = torch.Generator(device=self.device).manual_seed(seed)
         self.state = TrainState.create(params, self.tx, step_rng)
         # Every replica the params live in (one without a mesh).
@@ -167,7 +179,7 @@ class Trainer:
         # with the step it tells the checkpoint layer whether the state at
         # one step number still matches its last save.
         self.mutation_counter = 0
-        # (step, host params tree), self._snapshot: replaced whole, so a
+        # (step, host payload tree), self._snapshot: replaced whole, so a
         # reader on another thread always sees one consistent pair.
         self._take_snapshot(0)
 
@@ -205,41 +217,51 @@ class Trainer:
             off += x.numel()
         return tree_unflatten(treedef, out)
 
+    def _host_payload(self) -> Any:
+        """The live ``avg_select`` subtree as host f32 numpy leaves."""
+        return self._host_tree(self.bundle.avg_select(self.state.params))
+
     def _take_snapshot(self, step_no: int, host: Any = None) -> None:
         """Refresh the cross-thread snapshot, on the trainer thread between
-        steps. ``host`` is a host tree of the live params already made (a
-        round's payload copy); without it, one device-to-host copy."""
-        self._snapshot = (step_no, self._host_tree(self.state.params) if host is None else host)
+        steps. ``host`` is a host copy of the live payload already made (a
+        round's); without it, one device-to-host copy."""
+        self._snapshot = (step_no, self._host_payload() if host is None else host)
 
     def host_snapshot(self) -> Tuple[int, Any]:
-        """(step, host params tree of f32 numpy leaves); safe from any thread."""
+        """(step, host tree of the ``avg_select`` subtree, f32 numpy leaves);
+        safe from any thread."""
         return self._snapshot
 
-    def _write_params(self, new_params: Any) -> None:
-        """Copy a host tree of the full params into the live params of every
-        replica in place; the optimizer's moments keep their tensors."""
+    def _write_params(self, payload: Any) -> None:
+        """Copy a host tree of the ``avg_select`` subtree into the live
+        tensors of that subtree, in every replica, in place; the rest of the
+        params and the optimizer's moments keep their tensors."""
+        src_leaves, src_def = tree_flatten(payload)
         with torch.no_grad():
-            src = [torch.from_numpy(np.ascontiguousarray(v, np.float32)) for v in tree_leaves(new_params)]
+            src = [torch.from_numpy(np.ascontiguousarray(v, np.float32)) for v in src_leaves]
             for replica in self._replicas:
-                for p, v in zip(tree_leaves(replica.params), src):
+                dst, dst_def = tree_flatten(self.bundle.avg_select(replica.params))
+                if dst_def != src_def:
+                    raise ValueError("payload tree differs from the params' averaged subtree")
+                for p, v in zip(dst, src):
                     p.copy_(v)
 
-    def _swap_params(self, new_params: Any, step_no: int) -> None:
-        """A merged host tree becomes live state in every replica — the ONE
-        place a merge lands, shared by the blocking and overlapped paths —
-        and the snapshot. The merged tree is the snapshot itself when the
-        params are f32 (what the copy wrote is what it holds)."""
-        self._write_params(new_params)
+    def _swap_params(self, payload: Any, step_no: int) -> None:
+        """A merged host payload becomes live state in every replica — the
+        ONE place a merge lands, shared by the blocking and overlapped paths
+        — and the snapshot. The merged tree is the snapshot itself when the
+        payload is f32 (what the copy wrote is what it holds)."""
+        self._write_params(payload)
         self.mutation_counter += 1
-        exact = all(p.dtype == torch.float32 for p in tree_leaves(self.state.params))
-        self._take_snapshot(step_no, new_params if exact else None)
+        exact = all(p.dtype == torch.float32 for p in tree_leaves(self.bundle.avg_select(self.state.params)))
+        self._take_snapshot(step_no, payload if exact else None)
 
-    def adopt_params(self, params: Any, step: Optional[int] = None) -> None:
-        """Replace the params of every replica in place with a host tree,
-        and optionally the step counter (the state-sync pull). The
-        optimizer's moments are kept: at adoption they are either cold or
-        restored, and the averaging rounds re-sync them either way."""
-        self._write_params(params)
+    def adopt_params(self, payload: Any, step: Optional[int] = None) -> None:
+        """Replace the ``avg_select`` subtree of every replica in place with
+        a host tree (the state-sync pull), and optionally the step counter.
+        The optimizer's moments are kept: at adoption they are either cold
+        or restored, and the averaging rounds re-sync them either way."""
+        self._write_params(payload)
         if step is not None:
             for replica in self._replicas:
                 replica.step = int(step)
@@ -273,10 +295,9 @@ class Trainer:
             self.steps_since_merge = max(1, step_no - self._last_merge_step)
 
     def _run_average_round(self, step_no: int) -> Tuple[Any, Optional[Any]]:
-        """One blocking round: (the host copy of the params it shipped, the
-        merged tree or None when no group formed / the round failed)."""
-        host = self._host_tree(self.state.params)
-        payload = self.bundle.avg_select(host)
+        """One blocking round: (the host payload it shipped, the averaged
+        payload or None when no group formed / the round failed)."""
+        payload = self._host_payload()
         self._note_window_progress(step_no)
         t_avg = time.monotonic()
         averaged = self.averager(payload, step_no)
@@ -285,17 +306,16 @@ class Trainer:
             {"avg_s": time.monotonic() - t_avg, "ok": averaged is not None, "what": "params"},
         )
         if averaged is None:
-            return host, None
-        return host, self.bundle.avg_merge(host, tree_map(np.asarray, averaged))
+            return payload, None
+        return payload, tree_map(np.asarray, averaged)
 
     def _launch_overlap_round(self, step_no: int) -> None:
-        """Snapshot the payload to the host and run the round on the pool
-        while the next steps run (the train step updates the params in
-        place, so the pool must never read them). The same host copy is the
+        """Copy the payload to the host and run the round on the pool while
+        the next steps run (the train step updates the params in place, so
+        the pool must never read them). The same host copy is the
         cross-thread snapshot."""
-        host = self._host_tree(self.state.params)
-        self._take_snapshot(step_no, host)
-        payload0 = self.bundle.avg_select(host)
+        payload0 = self._host_payload()
+        self._take_snapshot(step_no, payload0)
         self._note_window_progress(step_no)
         t0 = time.monotonic()
         fut = self._avg_pool.submit(lambda: (self.averager(payload0, step_no), time.monotonic() - t0))
@@ -327,12 +347,11 @@ class Trainer:
         )
         if not ok:
             return
-        current = self._host_tree(self.state.params)
         merged = tree_map(
             lambda avg, cur, p0: np.asarray(avg, np.float32) + (cur - p0),
-            averaged, self.bundle.avg_select(current), payload0,
+            averaged, self._host_payload(), payload0,
         )
-        self._swap_params(self.bundle.avg_merge(current, merged), step_no)
+        self._swap_params(merged, step_no)
         # Progress up to the LAUNCH step entered the average.
         self._last_merge_step = launch_step
 
@@ -390,12 +409,12 @@ class Trainer:
                             # state sync serves current weights.
                             self._take_snapshot(step_no)
                 elif self._avg_due(step_no):
-                    host, merged = self._run_average_round(step_no)
-                    if merged is not None:
-                        self._swap_params(merged, step_no)
+                    payload, averaged = self._run_average_round(step_no)
+                    if averaged is not None:
+                        self._swap_params(averaged, step_no)
                         self._last_merge_step = step_no
                     else:
-                        self._take_snapshot(step_no, host)
+                        self._take_snapshot(step_no, payload)
                 if self.average_interval_s > 0 and step_no % self.average_every == 0:
                     # Wall-clock rounds can be far apart: keep the state-sync
                     # snapshot fresh on the step cadence all the same.

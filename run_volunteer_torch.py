@@ -17,6 +17,8 @@ The other modes: ``--averaging gossip``; ``--averaging butterfly``, on a
 ``--average-interval-s`` sets another (0 = the step cadence); and
 ``--averaging byzantine --method trimmed_mean --resilience`` (full-mesh
 robust rounds with the phi-accrual detector, the policy and the controller).
+Without ``--model`` it trains the reference's default, mnist_mlp
+(capability config 1); ``--list-models`` prints the ported zoo.
 
 On SIGTERM (a preemption notice) the volunteer stops after its current step,
 saves a final checkpoint, leaves the swarm and exits 0. It prints

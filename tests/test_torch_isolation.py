@@ -67,6 +67,21 @@ PROTOCOLS_SLICE = (
 )
 
 
+# The modules of the model-zoo slice.
+MODELS_SLICE = (
+    "distributedvolunteercomputing_tpu_torch.models.mlp",
+    "distributedvolunteercomputing_tpu_torch.models.resnet",
+    "distributedvolunteercomputing_tpu_torch.models.vit",
+    "distributedvolunteercomputing_tpu_torch.models.bert",
+    "distributedvolunteercomputing_tpu_torch.models.lora",
+    "distributedvolunteercomputing_tpu_torch.models.llama",
+)
+
+
+def test_scans_cover_the_models_slice():
+    assert set(MODELS_SLICE) <= {m for m, _ in _port_modules()}
+
+
 def test_scans_cover_the_swarm_slice():
     assert set(SWARM_SLICE) <= {m for m, _ in _port_modules()}
 
@@ -86,7 +101,7 @@ def test_entry_scripts_load_no_jax():
     code = (
         "import importlib, json, runpy, sys\n"
         f"for s in {[str(p) for p in ENTRY_SCRIPTS]!r}: runpy.run_path(s)\n"
-        f"for m in {list(LIFECYCLE_SLICE + PROTOCOLS_SLICE) + ['distributedvolunteercomputing_tpu_torch.swarm.volunteer']!r}:\n"
+        f"for m in {list(LIFECYCLE_SLICE + PROTOCOLS_SLICE + MODELS_SLICE) + ['distributedvolunteercomputing_tpu_torch.swarm.volunteer']!r}:\n"
         "    importlib.import_module(m)\n"
         "sys.argv = ['run_volunteer_torch.py', '--list-models']\n"
         f"runpy.run_path({str(ENTRY_SCRIPTS[1])!r}, run_name='__main__')\n"
@@ -99,7 +114,7 @@ def test_entry_scripts_load_no_jax():
         capture_output=True, text=True, cwd=REPO, env=env, timeout=120, check=True,
     )
     lines = out.stdout.strip().splitlines()
-    assert "gpt2_small" in lines[:-1]
+    assert {"gpt2_small", "mnist_mlp", "cifar10_resnet18", "cifar10_vit", "bert_mlm", "llama_lora"} <= set(lines[:-1])
     leaked = [m for m in json.loads(lines[-1]) if _forbidden(m)]
     assert not leaked, f"entry scripts pulled in {leaked[:10]}"
 
@@ -158,6 +173,6 @@ def test_unported_models_say_so():
     from distributedvolunteercomputing_tpu_torch.models import get_model
 
     with pytest.raises(KeyError, match="not ported"):
-        get_model("bert_mlm")
+        get_model("gpt2_moe")
     with pytest.raises(KeyError, match="unknown model"):
         get_model("no_such_model")

@@ -348,7 +348,7 @@ def _later_flag_argv():
                 specs[dest] = [flag, "3"]
     assert set(specs) == set(later)
     return [specs[d] for d in sorted(specs)] + [
-        ["--wire", "powersgd"], ["--wire", "q8"], ["--model", "bert_mlm"], ["--mesh", "dp=1,tp=2"],
+        ["--wire", "powersgd"], ["--wire", "q8"], ["--model", "gpt2_moe"], ["--mesh", "dp=1,tp=2"],
     ]
 
 
