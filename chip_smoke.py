@@ -77,12 +77,16 @@ Phases, each printing one JSON line:
             patterns, and one of 600 small chunks whose metadata splits it
             into several rings of whole slots. K6 bit-equal on finite lanes
             with inf / NaN lanes matching, K7 bit-equal, the whole fold
-            within ``RING_TOL`` of the host fold, K6's launches one per card
-            per ring step per ring: one ring for every case but "split",
-            whose ring count is bounded by its metadata words alone
-            (``k6_ring_range``); kernel / plain / library times per
-            flush (the wrapper's, and the kernels' own device time) and per
-            result, and the bound;
+            within ``RING_TOL`` of the host fold. Launches, exactly: with
+            every rank on one card, K6 one per ring of a flush and K7 one
+            per result; across cards, K6 one per card per ring step per ring
+            and K7 nd·(nd - 1) per result. Every case is one ring but
+            "split", whose rings follow from its metadata words
+            (``k6_rings``). Kernel / plain / library times per flush
+            (cycling ``FLUSH_SETS`` flagship flushes) and per result, each
+            through its wrapper and by the kernels' own device time, the
+            K7 design not kept (TMA bulk copies, built from
+            ``experiments/torch_ring_variants.cu``), and the bound;
 8. dp_parity one full-width f32 step of the dp=2 trainer (two ranks, as in
             7) against the one-rank trainer from the same init and batch:
             every averaged-gradient leaf, the loss and every param leaf's
@@ -91,9 +95,9 @@ Phases, each printing one JSON line:
 9. ring_averaging  phase 6 again with both volunteers on a dp=2 mesh and
             ``mesh_collective="ring"``: the leader's streamed rounds fold on
             K6 and gather on K7, no K5 launch, K4 once per rank per encode,
-            K6 = nd·(cards in use) per ring flush (one launch per card per
-            ring step: nd on the one card) and K7 = nd·(nd - 1) per ring
-            result (the codec's gauges), values within ``AVG_TOL``.
+            K6 = one launch per ring flush and K7 = one per ring result with
+            both ranks on the one card (nd·(cards in use) and nd·(nd - 1)
+            across cards; the codec's gauges), values within ``AVG_TOL``.
 10. lifecycle  the flagship volunteer's life from the port's entry scripts:
             ``coordinator_torch.py`` starts; volunteer A runs as a process of
             ``run_volunteer_torch.py`` (gpt2_small at full width, batch 8,
@@ -199,6 +203,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1004,7 +1009,8 @@ def fold_phase(mem_rate: float, f32_rate: float) -> dict:
     out["timing"] = {
         "chunks": len(f0["tiles"]), "distinct_tiles": len(set(f0["tiles"])),
         "launches_per_flush": 1,
-        "device_ms": kernel_device_ms(fold, "bf16_fold_kernel", iters=4 * FLUSH_SETS),
+        "device_ms_profiler": kernel_device_ms(fold, "bf16_fold_kernel", iters=4 * FLUSH_SETS),
+        "device_ms_spin": device_ms(fold, reps=4 * FLUSH_SETS)["ms"],
         "wrapper_ms": time_ms(fold, iters=8 * FLUSH_SETS),
         "plain_ms": time_ms(plain, iters=2 * FLUSH_SETS),
         "library_ms": time_ms(library, iters=8 * FLUSH_SETS),
@@ -1014,6 +1020,7 @@ def fold_phase(mem_rate: float, f32_rate: float) -> dict:
         "bound_by": "bytes" if nbytes / mem_rate >= flops / f32_rate else "operations",
         "max_abs_err": max(r["max_abs_err"] for c in out["cases"] for r in c["ranks_vs_plain"]),
     }
+    out["timing"]["device_ms"] = out["timing"]["device_ms_profiler"]["ms"]
     emit({"phase": "codec_fold", "timing": out["timing"]})
     del flag, cases, sets, acc
     return out
@@ -1063,15 +1070,19 @@ def expected_codec_launches(
     per streamed contribution of gpt2_small's 249 MB); none under the ring.
     Round 1 parks the member's push dense (the leader arms after its first
     pack); dense feeds are plain ``add_``.
-    K6 / K7 (ring, ``nd`` ranks on ``cards`` cards): nd steps of one launch
-    per card per ring flush (a flagship flush of 1 MiB chunks always fits
-    one launch's metadata), nd - 1 hops of nd launches per ring result,
-    counted by the codec's ``ring_flushes`` and ``ring_results`` gauges."""
+    K6 / K7 (ring, ``nd`` ranks in ``cards`` K6 launch groups,
+    ``k6_launch_groups``), counted by the codec's ``ring_flushes`` and
+    ``ring_results`` gauges; a flagship flush of 1 MiB chunks always fits one
+    ring's metadata. One card holding every rank: one K6 launch per ring
+    flush and one K7 launch per ring result. Across cards: nd steps of one
+    K6 launch per card per flush, nd - 1 hops of nd K7 launches per result."""
     out = {
         "bf16_encode": nd * (2 * groups_formed + committed_rounds),
         "bf16_fold_chunks": 0 if ring else nd * folder_flushes,
     }
-    if ring:
+    if ring and cards == 1:
+        out.update(ring_fold=ring_flushes, ring_allgather=ring_results)
+    elif ring:
         out.update(ring_fold=nd * cards * ring_flushes, ring_allgather=nd * (nd - 1) * ring_results)
     return out
 
@@ -2510,26 +2521,37 @@ def host_fold(case, accs_init) -> "np.ndarray":
 
 
 def k6_launch_groups(devices) -> int:
-    """K6 launches per ring step: one per card, at most ``K6_MAX_RANKS``
-    ranks each."""
+    """K6 launch groups: one per card, at most ``K6_MAX_RANKS`` ranks each.
+    One group is the one-card design (one launch per ring); more, the
+    stepwise design (one launch per group per ring step)."""
     return sum(-(-n // K6_MAX_RANKS) for n in collections.Counter(str(d) for d in devices).values())
 
 
-def k6_ring_range(rank_tiles, nd: int) -> tuple:
-    """The fewest and most rings K6 may fold a flush in, from its metadata
-    word count alone: W = U·(1 + nd) + nd + 2K for U distinct tiles and K
-    chunks (row and slot_ptr per slot, the closing slot_ptr, chunk and weight
-    per chunk). W within one launch's ``K6_META_WORDS`` is one ring. Beyond
-    it, every ring but the last stopped short of the next slot, which adds at
-    most 1 + nd + 2·c words (c its most chunks of one tile), and every ring
-    adds its own closing slot_ptr (nd words)."""
+def k6_rings(rank_tiles, nd: int) -> int:
+    """The rings K6 folds a flush in, from its metadata words: a ring of U
+    slots and K chunks takes U·(1 + nd) + nd + 2K words (row and slot_ptr per
+    slot, the closing slot_ptr, chunk and weight per chunk); the distinct
+    tiles, sorted, go into one ring while it stays within
+    ``K6_META_WORDS``."""
     counts = collections.Counter(t for ts in rank_tiles for t in ts)
-    k = sum(counts.values())
-    words = len(counts) * (1 + nd) + nd + 2 * k
-    if words <= K6_META_WORDS:
-        return 1, 1
-    room = K6_META_WORDS - 1 - 2 * nd - 2 * max(counts.values())
-    return -(-words // K6_META_WORDS), -(-words // room)
+    rings, words = 1, nd
+    for t in sorted(counts):
+        w = 1 + nd + 2 * counts[t]
+        if words + w > K6_META_WORDS:
+            rings, words = rings + 1, nd
+        words += w
+    return rings
+
+
+def ring_launches(devices, rings: int, stepwise: bool = False) -> tuple:
+    """(K6 launches for a flush of ``rings`` rings, K7 launches per result)
+    on the ranks ``devices``, by the design the wrappers pick there, or by
+    the stepwise design (``ring_fold_stepwise`` / ``ring_allgather_stepwise``)
+    where ``stepwise``."""
+    nd, groups = len(devices), k6_launch_groups(devices)
+    if groups == 1 and not stepwise:
+        return rings, 1
+    return nd * groups * rings, nd * (nd - 1)
 
 
 def ring_kernels_phase(peak, ranks=ring_ranks) -> dict:
@@ -2542,8 +2564,11 @@ def ring_kernels_phase(peak, ranks=ring_ranks) -> dict:
     within ``RING_TOL`` of ``native``'s host fold (not for the special bits,
     whose huge random values overflow in an order-dependent way). Timed at
     the flagship geometry: per flush, per result, plain versions and library
-    yardsticks, with the bound. ``ranks(nd)`` -> (devices, cross_card)
-    places the ranks."""
+    yardsticks, with the bound. With every rank on one card the stepwise
+    design (``ring_fold_stepwise`` / ``ring_allgather_stepwise``, which the
+    wrappers run across cards) is held to the same plain versions in every
+    case, bit for bit, its launches exact. ``ranks(nd)`` -> (devices,
+    cross_card) places the ranks."""
     import numpy as np
 
     from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
@@ -2559,7 +2584,6 @@ def ring_kernels_phase(peak, ranks=ring_ranks) -> dict:
         emit({"phase": "ring_ranks", "nd": nd, "devices": [str(d) for d in devices], "cross_card": cross,
               "device_count": torch.cuda.device_count()})
         codec = mc.MeshCodec(backend="device", mesh=_mesh(devices), collective="ring")
-        launch_groups = k6_launch_groups(devices)  # K6 launches per ring step
         ft = rng.choice(flag_tiles - 1, 12).tolist() + [flag_tiles - 1]
         ft = ft + ft[:3]  # repeated tiles within and across ranks; 16 chunks
         fw = rng.uniform(0.25, 2.0, len(ft)).astype(np.float32).tolist()
@@ -2579,13 +2603,14 @@ def ring_kernels_phase(peak, ranks=ring_ranks) -> dict:
                 continue
             accs_k, accs_p = ring_accs(case), ring_accs(case)
             init = [a.clone() for a in accs_k]
-            rings = k6_ring_range(case["rank_tiles"], nd)
-            before = mcol.LAUNCHES["ring_fold"]
+            rings = k6_rings(case["rank_tiles"], nd)
+            before = dict(mcol.LAUNCHES)
             mcol.ring_fold(accs_k, case["bits"], case["rank_tiles"], case["rank_weights"], mcol.RingPartials(),
                            streams=codec.streams)
-            fold_launches = mcol.LAUNCHES["ring_fold"] - before
+            fold_launches = mcol.LAUNCHES["ring_fold"] - before["ring_fold"]
             mcol.ring_fold_plain(accs_p, case["bits"], case["rank_tiles"], case["rank_weights"])
             outs_k = mcol.ring_allgather(accs_k, streams=codec.streams)
+            gather_launches = mcol.LAUNCHES["ring_allgather"] - before["ring_allgather"]
             outs_p = mcol.ring_allgather_plain(accs_k)
             torch.cuda.synchronize()
             fold = [bits_equal(a, b) for a, b in zip(accs_k, accs_p)]
@@ -2595,13 +2620,33 @@ def ring_kernels_phase(peak, ranks=ring_ranks) -> dict:
                 "n_elems": case["n_elems"], "tile": case["tile"], "n_tiles": case["n_tiles"],
                 "chunks": len(case["tiles"]), "distinct_tiles": len(set(case["tiles"])),
                 "chunks_per_rank": [len(t) for t in case["rank_tiles"]],
-                "ring_fold_vs_plain": fold, "ring_allgather_vs_plain": gather, "fold_rings_expected": list(rings),
-                "fold_launches": fold_launches,
-                "fold_launches_expected": [nd * launch_groups * r for r in rings],
+                "ring_fold_vs_plain": fold, "ring_allgather_vs_plain": gather, "fold_rings": rings,
+                "fold_launches": fold_launches, "gather_launches": gather_launches,
             }
+            row["fold_launches_expected"], row["gather_launches_expected"] = ring_launches(devices, rings)
             ok = all(f["finite_lanes_differing"] == 0 and f["nonfinite_match"] for f in fold + gather)
-            lo, hi = row["fold_launches_expected"]
-            ok = ok and fold_launches % (nd * launch_groups) == 0 and lo <= fold_launches <= hi
+            ok = ok and fold_launches == row["fold_launches_expected"]
+            ok = ok and gather_launches == row["gather_launches_expected"]
+            if not cross:  # the stepwise design's kernels, on the one card
+                accs_s = ring_accs(case)
+                before = dict(mcol.LAUNCHES)
+                mcol.ring_fold_stepwise(accs_s, case["bits"], case["rank_tiles"], case["rank_weights"],
+                                        mcol.RingPartials(), streams=codec.streams)
+                step_fold = mcol.LAUNCHES["ring_fold"] - before["ring_fold"]
+                outs_s = mcol.ring_allgather_stepwise(accs_k, streams=codec.streams)
+                step_gather = mcol.LAUNCHES["ring_allgather"] - before["ring_allgather"]
+                torch.cuda.synchronize()
+                fold_s = [bits_equal(a, b) for a, b in zip(accs_s, accs_p)]
+                gather_s = [bits_equal(a, b) for a, b in zip(outs_s, outs_p)]
+                want_fold, want_gather = ring_launches(devices, rings, stepwise=True)
+                row["stepwise"] = {
+                    "ring_fold_vs_plain": fold_s, "ring_allgather_vs_plain": gather_s,
+                    "fold_launches": step_fold, "fold_launches_expected": want_fold,
+                    "gather_launches": step_gather, "gather_launches_expected": want_gather,
+                }
+                ok = ok and all(f["finite_lanes_differing"] == 0 and f["nonfinite_match"] for f in fold_s + gather_s)
+                ok = ok and step_fold == want_fold and step_gather == want_gather
+                del accs_s, outs_s
             if not case["special"]:
                 got = outs_k[0].view(-1)[: case["n_elems"]].cpu().numpy()
                 want = host_fold(case, init)
@@ -2624,10 +2669,15 @@ def ring_kernels_phase(peak, ranks=ring_ranks) -> dict:
     return results
 
 
-def kernel_device_ms(fn, kernel: str, iters: int = 10) -> float:
+def kernel_device_ms(fn, kernel: str, iters: int = 10, per_call: int = 1) -> dict:
     """Device time per call of ``fn`` spent in kernels whose name holds
     ``kernel``, from a ``torch.profiler`` trace (the wrapper's host work and
-    the gaps between its launches left out)."""
+    the gaps between its launches left out), for ``fn`` launching
+    ``per_call`` such kernels: ``ms`` the mean of the kernel records the
+    trace holds times ``per_call``, ``ms_per_iter`` their sum over
+    ``iters``, ``records`` against ``expected`` (iters · per_call). The two
+    differ only when the trace holds fewer or more records than the calls
+    launched."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2636,68 +2686,154 @@ def kernel_device_ms(fn, kernel: str, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us, records = 0.0, 0
     for evt in prof.key_averages():
         if kernel in evt.key:
             total_us += next((float(getattr(evt, a)) for a in ("self_device_time_total", "self_cuda_time_total")
                               if getattr(evt, a, None)), 0.0)
-    return total_us / iters / 1e3
+            records += evt.count
+    return {"ms": total_us / max(records, 1) * per_call / 1e3, "ms_per_iter": total_us / iters / 1e3,
+            "records": records, "expected": iters * per_call}
+
+
+def ring_tma_library():
+    """The K7 design not kept (``experiments/torch_ring_variants.cu``: TMA
+    bulk copies through shared-memory stages), built alone with nvcc
+    (``ops/_build.py``'s flags) into ``build/ring_variants/`` when the
+    library is missing or older than its source, and bound with ctypes. The
+    port never loads it."""
+    import ctypes
+
+    from distributedvolunteercomputing_tpu_torch.ops import _build
+
+    src = HERE / "experiments" / "torch_ring_variants.cu"
+    out = HERE / "build" / "ring_variants" / "libtma.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if not out.exists() or out.stat().st_mtime < src.stat().st_mtime:
+        tmp = out.with_suffix(f".{os.getpid()}.so")
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}{proc.stdout}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.dvc_ring_allgather_tma.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                                           ctypes.c_void_p]
+    lib.dvc_ring_allgather_tma.restype = ctypes.c_int
+    lib.dvc_variant_error_string.argtypes = [ctypes.c_int]
+    lib.dvc_variant_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def time_ring(case, codec, mem_rate, f32_rate) -> dict:
-    """ms per flush (K6: the wrapper's whole ring, host metadata included,
-    partial slots kept across flushes as the folder keeps them) and per
-    result (K7) from CUDA events, the kernels' own device time from the
-    profiler, plain versions, library yardsticks and bounds."""
+    """K6 per flagship flush, cycling ``FLUSH_SETS`` flushes over disjoint
+    tiles and bits (their bytes exceed the L2, as K5's timing does), split
+    over the ranks as the ring folder splits a batch, and K7 per result:
+    through the wrapper (CUDA events around it, host packing included) and
+    by device time, two ways side by side: calls enqueued behind a spin
+    kernel (``device_ms``, as K1-K4; the number reported) and the profiler's
+    kernel time (``kernel_device_ms``), which has read K7 under its bound.
+    K6 also by device time of one flush repeated (its bytes stay in the L2:
+    how earlier designs were timed). With every rank on one card, the K7
+    design not kept (TMA) the same two ways. Plain versions, library
+    yardsticks and bounds."""
+    import numpy as np
+
     from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
     from distributedvolunteercomputing_tpu_torch.ops import mesh_collective as mcol
 
     nd, tile, n_tiles, shard = case["nd"], case["tile"], case["n_tiles"], case["shard"]
-    k, u = len(case["tiles"]), len(set(case["tiles"]))
+    devices = case["devices"]
     accs = ring_accs(case)
-    args = (case["bits"], case["rank_tiles"], case["rank_weights"])
-    partials = mcol.RingPartials()  # kept across flushes, as the ring folder keeps them
+    flag = codec_flushes("flagship", torch.Generator(device="cuda").manual_seed(99), np.random.default_rng(99))
+    full = flag.pop("acc")
+    per = -(-len(flag["sets"][0]["tiles"]) // nd)
+    sets = []
+    for f in flag["sets"]:
+        own = [slice(min(d * per, len(f["tiles"])), min((d + 1) * per, len(f["tiles"]))) for d in range(nd)]
+        sets.append((f, [f["bits"][sl].to(dev).contiguous() for sl, dev in zip(own, devices)],
+                     [f["tiles"][sl] for sl in own], [f["weights"][sl] for sl in own]))
+    partials = mcol.RingPartials()  # kept across flushes, as the ring folder keeps them (across cards)
+    turn = itertools.count()
 
     def fold():
+        _, bits, tiles, weights = sets[next(turn) % len(sets)]
+        mcol.ring_fold(accs, bits, tiles, weights, partials, streams=codec.streams)
+
+    args = (case["bits"], case["rank_tiles"], case["rank_weights"])
+
+    def fold_same():
         mcol.ring_fold(accs, *args, partials, streams=codec.streams)
 
-    # Yardsticks the port never calls: the fold without the ring (decoded,
-    # weighted batch -> one index_add_), at full width and into one shard.
-    dec = torch.tensor(case["weights"], device="cuda")[:, None] * mc.widen_bf16(case["bits_full"])
-    tiles_t = torch.tensor(case["tiles"], device="cuda")
-    full = case["acc0"].clone()
-    one_shard = accs[0].clone()
-    dec_shard = dec[:, :shard].contiguous()
+    def library():
+        f = sets[next(turn) % len(sets)][0]
+        full.index_add_(0, f["tiles_t"], f["dec"])
+
+    f0 = flag["sets"][0]
+    k, u = len(f0["tiles"]), len(set(f0["tiles"]))
     blocks = [[o[:, b * shard : (b + 1) * shard] for b in range(nd)] for o in
-              [torch.empty((n_tiles, tile), device=dev) for dev in case["devices"]]]
+              [torch.empty((n_tiles, tile), device=dev) for dev in devices]]
     fold_bytes = k * tile * 2 + 2 * u * tile * 4 + 8 * k
     fold_flops = 2 * k * tile + u * tile
     gather_bytes = (1 + nd) * n_tiles * tile * 4
+    per_flush, per_result = ring_launches(devices, 1)
+    cycled = 8 * len(sets)
     out = {
         "K6": {
-            "ms": time_ms(fold),
-            "device_ms": kernel_device_ms(fold, "ring_fold_kernel"),
+            "ms": time_ms(fold, iters=cycled),
+            "device_ms": device_ms(fold, reps=cycled)["ms"],
+            "device_ms_method": f"{cycled} calls enqueued behind a spin kernel (device_ms), {len(sets)} flushes"
+                                " cycled",
+            "device_ms_profiler": kernel_device_ms(fold, "ring_fold_kernel", iters=cycled),
+            "device_ms_same_flush": device_ms(fold_same, reps=cycled)["ms"],
             "plain_ms": time_ms(lambda: mcol.ring_fold_plain(accs, *args), iters=5),
-            "library_ms": time_ms(lambda: full.index_add_(0, tiles_t, dec)),
+            "library_ms": time_ms(library, iters=cycled),
             "library_call": "acc.index_add_(0, tiles, w * widen(bits)) at full width, decode not timed",
-            "library_shard_ms": time_ms(lambda: one_shard.index_add_(0, tiles_t, dec_shard)),
-            "bytes": fold_bytes, "flops": fold_flops,
-            "launches_per_flush": nd * k6_launch_groups(case["devices"]),
+            "flushes_cycled": len(sets), "bytes": fold_bytes, "flops": fold_flops,
+            "launches_per_flush": per_flush,
             "bound_ms": max(fold_bytes / mem_rate, fold_flops / f32_rate) * 1e3,
             "bound_by": "bytes" if fold_bytes / mem_rate >= fold_flops / f32_rate else "operations",
         },
         "K7": {
             "ms": time_ms(lambda: mcol.ring_allgather(accs, streams=codec.streams)),
-            "device_ms": kernel_device_ms(lambda: mcol.ring_allgather(accs, streams=codec.streams),
-                                          "ring_allgather_kernel"),
+            "device_ms": device_ms(lambda: mcol.ring_allgather(accs, streams=codec.streams), reps=10)["ms"],
+            "device_ms_method": "10 calls enqueued behind a spin kernel (device_ms)",
+            "device_ms_profiler": kernel_device_ms(lambda: mcol.ring_allgather(accs, streams=codec.streams),
+                                                   "ring_allgather_kernel"),
             "plain_ms": time_ms(lambda: mcol.ring_allgather_plain(accs), iters=5),
             "library_ms": time_ms(lambda: [blk.copy_(accs[b]) for row in blocks for b, blk in enumerate(row)]),
             "library_call": f"Tensor.copy_ of the same {nd * nd} blocks between the rank buffers",
-            "bytes": gather_bytes, "flops": 0, "launches_per_result": nd * (nd - 1),
+            "bytes": gather_bytes, "flops": 0, "launches_per_result": per_result,
             "bound_ms": gather_bytes / mem_rate * 1e3, "bound_by": "bytes",
         },
     }
-    del accs, dec, full, one_shard, dec_shard, blocks
+    if per_result == 1:  # every rank on one card: the design not kept, on the same inputs
+        tma = ring_tma_library()
+        outs = [torch.empty((n_tiles, tile), device=devices[0]) for _ in range(nd)]
+        ptrs = mcol.card_gather_pack([a.data_ptr() for a in accs], [o.data_ptr() for o in outs])
+
+        def gather_tma():
+            err = tma.dvc_ring_allgather_tma(ptrs.buffer_info()[0], nd, n_tiles, shard,
+                                             torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"tma_allgather: CUDA error {err}: {tma.dvc_variant_error_string(err).decode()}")
+
+        gather_tma()
+        want = mcol.ring_allgather_plain(accs)
+        torch.cuda.synchronize()
+        eq = [bits_equal(a, b) for a, b in zip(outs, want)]
+        del want
+        if any(e["finite_lanes_differing"] or not e["nonfinite_match"] for e in eq):
+            raise AssertionError(f"the TMA all-gather differs from ring_allgather_plain: {eq}")
+        out["K7"]["not_kept"] = {
+            "design": "TMA 1-D bulk copies: one load into a ring of 4 shared-memory stages, nd bulk stores from it"
+                      " (experiments/torch_ring_variants.cu)",
+            "ms": time_ms(gather_tma), "device_ms": device_ms(gather_tma, reps=10)["ms"],
+            "device_ms_profiler": kernel_device_ms(gather_tma, "tma_allgather_kernel"),
+            "max_abs_err": max(e["max_abs_err"] for e in eq),
+        }
+        del outs
+    del accs, sets, flag, full, blocks
     return out
 
 
@@ -2908,8 +3044,8 @@ def main() -> int:
     ring = ring_kernels_phase(peak)
     dp_parity_phase()
     devices, _ = ring_ranks(2)
-    ring_launches = averaging_phase(mesh=_mesh(devices), collective="ring", phase="ring_averaging")
-    launches.update({k: ring_launches[k] for k in RING_KERNELS})
+    ring_counts = averaging_phase(mesh=_mesh(devices), collective="ring", phase="ring_averaging")
+    launches.update({k: ring_counts[k] for k in RING_KERNELS})
     life_launches = lifecycle_phase()
     protocols = {"gossip": gossip_phase(), "butterfly": butterfly_phase(), "byzantine": byzantine_phase()}
     mnist_phase()
@@ -2977,12 +3113,18 @@ def main() -> int:
     flag = ring[("flagship", 2)]
     for kname, (replaces, kid) in RING_KERNELS.items():
         r = flag["timing"]["K6" if kid == "K6" else "K7"]
-        checks = [row["ring_fold_vs_plain" if kid == "K6" else "ring_allgather_vs_plain"] for row in ring.values()]
+        key = "ring_fold_vs_plain" if kid == "K6" else "ring_allgather_vs_plain"
+        checks = [row[key] for row in ring.values()] + [row["stepwise"][key] for row in ring.values()
+                                                        if "stepwise" in row]
         kernels.append({
             "name": kname, "id": kid, "route": "cuda", "source": RING_SOURCE, "replaces": replaces,
             "launches": launches[kname], "launches_models": model_launches(kname),
             "max_abs_err": max(c["max_abs_err"] for rows in checks for c in rows),
-            "nd": 2, "cross_card": flag["cross_card"], "ms": r["ms"], "device_ms": r["device_ms"],
+            "nd": 2, "cross_card": flag["cross_card"],
+            "design": "stepwise, across cards" if flag["cross_card"] else "one launch, every rank on one card",
+            "ms": r["ms"], "ms_method": "CUDA events around the wrapper's call", "device_ms": r["device_ms"],
+            **{key: r[key] for key in ("device_ms_method", "device_ms_profiler", "device_ms_same_flush",
+                                       "launches_per_flush", "launches_per_result", "not_kept") if key in r},
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_call": r["library_call"],

@@ -10,63 +10,81 @@
 // its working set passed a 10 MiB VMEM cap, which the flagship buffer always
 // did. These kernels take every size.
 //
-// K6: one launch is one ring step of every rank on one card (grid.y = the
-// card's ranks), on one stream of that card, its flush metadata passed by
-// value in the kernel's parameter block: no device buffer, no host-to-device
-// copy, no synchronisation per flush. One call from the host launches every
-// step of a card that holds all the ranks. The caller (ops/mesh_collective.py)
-// orders the steps: on one card, stream order alone gives "step s of rank d
-// after step s - 1 of its left neighbour (the partial it reads)" and "after
-// step s - 1 of its right neighbour (which has then finished reading the
-// slot step s overwrites: the TPU kernel's capacity semaphore)"; between
-// cards, CUDA events give them. K7: one launch is one hop of one rank, on
-// that rank's stream, ordered by events. Nothing spins on a flag, so ranks
-// that share a card cannot deadlock, whichever of their blocks the card
-// runs first. Data moves by pull: a rank reads its left neighbour's buffers
-// through their device pointers, the same address space on one card and
-// peer memory over NVLink on two (after dvc_enable_peer_access). Nothing
-// is staged through the host.
+// Both have two designs, and the caller (ops/mesh_collective.py) picks one
+// from where the ranks live, never from a failure:
 //
-//  - K6, rank d, step s, shard b = (d - s - 1) mod nd: for each of the
-//    flush's distinct tiles u, p = 0, then p = p + w_i * widen(bits_i) over
-//    the rank's own chunks i of that tile in staging order, over the
-//    columns [b * shard, (b + 1) * shard); v = recv + p (recv: the left
-//    neighbour's partial of step s - 1; none at step 0); non-last steps
-//    write v to the rank's partial slot, the last step (where b = d) writes
-//    acc[tile_u] + v into the accumulator shard in place. Multiply and add
-//    are rounded separately (__fmul_rn / __fadd_rn: no FMA contraction), so
-//    the fold is bit-equal to ring_fold_plain.
-//    The partial covers the flush's distinct tiles only (at most ~17 rows
-//    for a 16 MiB flush of 1 MiB chunks), not all n_tiles rows as the TPU
-//    kernel's scratch did: at gpt2_small and nd = 2 a full partial is
-//    238 x 262,144 floats (250 MB) zeroed, written and read at every step;
-//    the compact one is ~17 MB, and the function is the same. The caller
-//    keeps the partial slots across flushes. A flush whose metadata passes
-//    kFoldMetaWords is split by the caller into groups of whole slots, each
-//    a ring of its own: every tile's sum keeps its order.
-//  - K7, rank d, step s: copy block (d - s - 1) mod nd from the left
-//    neighbour into the rank's full [n_tiles, nd * shard] result; at step 0
-//    the block comes from the neighbour's accumulator shard, and the rank's
-//    own shard is copied into its own block in the same launch. Each block
-//    lands in columns [blk * shard, (blk + 1) * shard) of every row, so the
-//    result is the flat accumulator with no transpose after it.
+//  - One card holds every rank (at most kFoldMaxRanks): the ring is a sum
+//    order, not a transport, so nothing travels. K6 is one launch per ring
+//    group of a flush (card_ring_fold_kernel) and K7 one launch per result
+//    (card_ring_allgather_kernel), on the caller's stream, with every rank's
+//    pointers in the parameter block.
+//  - The ranks span cards: the stepwise design. K6 is one launch per card
+//    per ring step (ring_fold_kernel, grid.y the card's ranks), each step
+//    writing a partial slot that the right neighbour's next step reads; K7
+//    is one launch per rank per hop (ring_allgather_kernel). The caller
+//    orders the steps with CUDA events between the cards' streams. Data
+//    moves by pull: a rank reads its left neighbour's buffers through their
+//    device pointers, peer memory over NVLink (after dvc_enable_peer_access).
+//    Nothing spins on a flag and nothing is staged through the host.
 //
-// What bounds them on an H100: bytes. A flush of k chunks over U distinct
-// tiles must read the k * tile_elems bf16 bits once and read and write the
-// U touched accumulator rows (2 + 8 B per element at U = k); the ring adds
-// 2 (nd - 1) / nd partial passes per element on top, which on one card are
-// device-memory traffic and across cards NVLink traffic. K7 reads each
-// shard once and writes nd full copies. The design is the plain one for a
-// streaming pass: a grid-stride loop, 8 columns per thread with 16-byte
-// loads and stores of bits, partials and accumulator rows (4 floats for
-// K7), a scalar path when a width or a pointer is not 16-byte aligned, no
-// shared memory (lanes are independent).
+// K6's function, for every shard b and every distinct tile u of the flush
+// (a "slot"): p_d = 0, then p_d = p_d + w_i * widen(bits_i) over rank d's
+// chunks i of tile u in staging order, over the columns
+// [b * shard, (b + 1) * shard); v = p_{b+1}, then v = v + p_{b+2}, ...,
+// v = v + p_b (ranks mod nd); acc_b[tile_u] = acc_b[tile_u] + v. Multiply and
+// add are rounded separately (__fmul_rn / __fadd_rn: no FMA contraction), so
+// both designs are bit-equal to ring_fold_plain.
+//
+//  - card_ring_fold_kernel: block (x, u, b) of a (column groups, slots,
+//    shards) grid; a thread owns 8 columns of slot u in shard b. It loads
+//    the accumulator row's 8 lanes, then walks the slot's chunks in the
+//    ring's order (ranks b + 1, ..., b, each rank's chunks in staging order),
+//    issuing up to kFoldBatch 16-byte loads of bits before it folds them,
+//    keeps every rank's partial and the running v in registers, and writes
+//    the accumulator once. A flagship flush (16 chunks of 1 MiB over ~13
+//    tiles) moves its bound's bytes: the bits once, the touched accumulator
+//    rows read and written once; no partial slot exists.
+//  - ring_fold_kernel (rank d, step s, shard b = (d - s - 1) mod nd): p over
+//    the rank's own chunks, v = recv + p (recv: the left neighbour's partial
+//    of step s - 1; none at step 0); non-last steps write v to the rank's
+//    partial slot, the last step (b = d) writes acc[tile_u] + v. The partial
+//    covers the flush's distinct tiles only, and the caller keeps the slots
+//    across flushes. Each step adds a partial written and read through
+//    device (or peer) memory: 2 (nd - 1) / nd extra passes per element.
+//  - A flush whose metadata passes kFoldMetaWords is split by the caller
+//    into groups of whole slots, each a ring of its own: every tile's sum
+//    keeps its order.
+//
+// K7's function: every rank's [n_tiles, nd * shard] copy of the flat
+// accumulator, shard b in columns [b * shard, (b + 1) * shard) of every row.
+//
+//  - card_ring_allgather_kernel: block (x, row, b); a thread loads
+//    kUnroll 16-byte groups of shard b's row (all issued before any store)
+//    and stores each into block b of all nd copies with evict-first stores.
+//    Each shard is read once and each copy written once: the bound's bytes.
+//  - ring_allgather_kernel (rank d, hop s): copy block (d - s - 1) mod nd
+//    from the left neighbour (from its shard at hop 0, when the rank's own
+//    shard is copied in the same launch). Every shard is read nd times.
+//
+// What bounds them on an H100: bytes (a few operations per byte moved). A
+// flush of k chunks over U distinct tiles must read the k * tile_elems bf16
+// bits once and read and write the U touched accumulator rows; K7 reads each
+// shard once and writes nd full copies. The one-card designs move exactly
+// that, 16 bytes a load, neighbouring threads on neighbouring addresses,
+// streaming cache hints (__ldcs / __stcs: no byte is read twice), grids that
+// cover the data in one pass, no shared memory (lanes are independent). A
+// scalar path of the same shape takes a width or a pointer that is not
+// 16-byte aligned. experiments/torch_ring_variants.py times them against the
+// stepwise designs on one card and against a TMA bulk-copy K7
+// (experiments/torch_ring_variants.cu) (PERF.md).
 //
 // Plain C interface (bound with ctypes); each entry point launches on the
 // stream it is given and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -78,10 +96,11 @@ __device__ __forceinline__ float axpy(float a, float w, uint32_t bits16) {
   return __fadd_rn(a, __fmul_rn(w, widen(bits16)));
 }
 
-constexpr int kFoldMaxRanks = 8;      // ranks per launch (grid.y)
+constexpr int kFoldMaxRanks = 8;      // ranks per launch (the stepwise grid.y, the one-card grid.z)
 constexpr int kFoldMetaWords = 896;  // metadata words per launch: the block stays under 4 KB
 
-// One rank's ring step.
+// One rank's ring step (the one-card kernel reads bits, dst = the
+// accumulator shard, meta and k).
 struct FoldRank {
   const uint16_t* bits;  // own chunks [k, tile_elems]
   const float* recv;     // left neighbour's partial [n_slots, shard]; null at step 0
@@ -215,7 +234,191 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// --- one card holds every rank ------------------------------------------------
+
+constexpr int kFoldBatch = 4;  // K6: chunk loads a thread issues before it folds them
+constexpr int kUnroll = 4;     // K7: 16-byte groups a thread loads before it stores them
+
+// kVec lanes of bf16 bits: one 16-byte load of 8 lanes, or one lane.
+template <int kVec>
+struct Bits;
+
+template <>
+struct Bits<8> {
+  uint4 v;
+  __device__ __forceinline__ void load(const uint16_t* p) { v = __ldcs(reinterpret_cast<const uint4*>(p)); }
+  __device__ __forceinline__ uint32_t lane(int e) const {
+    const uint32_t w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
+    return e & 1 ? w >> 16 : w & 0xffffu;
+  }
+};
+
+template <>
+struct Bits<1> {
+  uint32_t v;
+  __device__ __forceinline__ void load(const uint16_t* p) { v = __ldcs(p); }
+  __device__ __forceinline__ uint32_t lane(int) const { return v; }
+};
+
+template <int kVec>
+__device__ __forceinline__ void load_lanes(const float* p, float (&x)[kVec]) {
+  if constexpr (kVec == 8) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldcs(reinterpret_cast<const float4*>(p + 4));
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+  } else {
+    x[0] = __ldcs(p);
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void store_lanes(float* p, const float (&x)[kVec]) {
+  if constexpr (kVec == 8) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
+    __stcs(reinterpret_cast<float4*>(p + 4), make_float4(x[4], x[5], x[6], x[7]));
+  } else {
+    __stcs(p, x[0]);
+  }
+}
+
+// The chunks of slot u that fold into shard b, in the ring's order: ranks
+// b + 1, ..., b (mod nd), each rank's chunks of the slot in staging order.
+// Every thread of a block walks the same positions (uniform reads of the
+// parameter block).
+struct RingWalk {
+  const FoldParams& a;
+  int u, step, r, j, end;  // step: ring position of rank r (0 for rank b + 1)
+
+  __device__ __forceinline__ RingWalk(const FoldParams& a, int u, int b) : a(a), u(u), step(0) {
+    r = b + 1 == a.n_ranks ? 0 : b + 1;
+    open();
+  }
+  __device__ __forceinline__ void open() {
+    const int32_t* slot_ptr = a.meta + a.rank[r].meta;
+    j = slot_ptr[u];
+    end = slot_ptr[u + 1];
+  }
+  // The next chunk: its ring position, bits row and weight; false past the last.
+  __device__ __forceinline__ bool next(int* at, const uint16_t** row, float* w) {
+    while (j == end) {
+      if (step == a.n_ranks - 1) return false;
+      ++step;
+      r = r + 1 == a.n_ranks ? 0 : r + 1;
+      open();
+    }
+    const FoldRank& rk = a.rank[r];
+    const int32_t* chunk = a.meta + rk.meta + a.n_slots + 1;
+    *at = step;
+    *row = rk.bits + static_cast<int64_t>(chunk[j]) * a.tile_elems;
+    *w = __int_as_float(chunk[rk.k + j]);
+    ++j;
+    return true;
+  }
+};
+
+// K6 on one card: block (x, u, b) folds columns [x * kThreads * kVec, ...)
+// of slot u in shard b; a.rank[d].dst is rank d's accumulator shard.
+template <int kVec>
+__global__ void __launch_bounds__(kThreads) card_ring_fold_kernel(const __grid_constant__ FoldParams a) {
+  const int u = blockIdx.y, b = blockIdx.z;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (g >= a.shard / kVec) return;
+  const int64_t col = b * a.shard + g * kVec;  // in a bits row
+  float* dst = a.rank[b].dst + static_cast<int64_t>(a.meta[u]) * a.shard + g * kVec;
+  float acc[kVec], p[kVec], v[kVec];
+  load_lanes<kVec>(dst, acc);
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) p[e] = v[e] = 0.0f;
+  int closed = 0;  // ring positions whose partial is in v
+  auto close = [&]() {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      v[e] = closed == 0 ? p[e] : __fadd_rn(v[e], p[e]);
+      p[e] = 0.0f;
+    }
+    ++closed;
+  };
+  RingWalk walk(a, u, b);
+  for (;;) {
+    Bits<kVec> x[kFoldBatch];
+    int at[kFoldBatch];
+    float w[kFoldBatch];
+    int n = 0;
+#pragma unroll
+    for (int t = 0; t < kFoldBatch; ++t) {
+      const uint16_t* row;
+      if (n == t && walk.next(&at[t], &row, &w[t])) {
+        x[t].load(row + col);
+        n = t + 1;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kFoldBatch; ++t) {
+      if (t < n) {
+        while (closed < at[t]) close();
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) p[e] = axpy(p[e], w[t], x[t].lane(e));
+      }
+    }
+    if (n < kFoldBatch) break;
+  }
+  while (closed < a.n_ranks) close();
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) acc[e] = __fadd_rn(acc[e], v[e]);
+  store_lanes<kVec>(dst, acc);
+}
+
+struct GatherParams {
+  const float* src[kFoldMaxRanks];  // shard b: [rows, shard]
+  float* dst[kFoldMaxRanks];        // rank d's copy: [rows, nd * shard]
+  int64_t rows;
+  int64_t shard;
+  int32_t nd;
+};
+
+// K7 on one card: block (x, y, b) copies groups [x * kThreads * kUnroll, ...)
+// of shard b's rows y, y + gridDim.y, ... into block b of every copy.
+template <int kVec>
+__global__ void __launch_bounds__(kThreads) card_ring_allgather_kernel(const __grid_constant__ GatherParams a) {
+  using V = typename std::conditional<kVec == 4, float4, float>::type;
+  const int b = blockIdx.z;
+  const int64_t groups = a.shard / kVec, width = a.nd * a.shard;
+  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * kThreads * kUnroll + threadIdx.x;
+  for (int64_t row = blockIdx.y; row < a.rows; row += gridDim.y) {
+    const V* src = reinterpret_cast<const V*>(a.src[b] + row * a.shard);
+    V x[kUnroll];
+#pragma unroll
+    for (int t = 0; t < kUnroll; ++t) {
+      const int64_t g = g0 + t * kThreads;
+      if (g < groups) x[t] = __ldcs(src + g);
+    }
+    for (int d = 0; d < a.nd; ++d) {
+      V* out = reinterpret_cast<V*>(a.dst[d] + row * width + b * a.shard);
+#pragma unroll
+      for (int t = 0; t < kUnroll; ++t) {
+        const int64_t g = g0 + t * kThreads;
+        if (g < groups) __stcs(out + g, x[t]);
+      }
+    }
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// Make `device` current for a launch; `prev` receives the device to restore.
+cudaError_t enter_device(int device, int* prev) {
+  cudaError_t err = cudaGetDevice(prev);
+  if (err == cudaSuccess && *prev != device) err = cudaSetDevice(device);
+  return err;
+}
+
+cudaError_t leave_device(int device, int prev, cudaError_t err) {
+  if (prev != device) {
+    const cudaError_t restore = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = restore;
+  }
+  return err;
+}
 
 // Enough blocks to fill every SM of `dev` (8 blocks of 256 threads each,
 // shared by the `ways` rows of the grid), fewer when the work is smaller;
@@ -238,18 +441,16 @@ cudaError_t grid_for(int dev, int64_t items, int ways, int* blocks) {
 
 extern "C" {
 
-// K6 ring steps [step0, step1) of the n_ranks ranks of card `device`, one
-// launch per step, on `stream` (a stream of that card): the whole ring in one
-// call when the card holds every rank, one step per call when other cards'
-// steps must be ordered by events in between. ranks: n_ranks records of 9
-// int64 (bits, acc, own slot 0, own slot 1, left neighbour's slot 0 and 1,
-// rank index, meta offset, k); meta: meta_words int32 (see FoldParams).
-// Both are host memory, copied into each launch's parameter block.
-int dvc_ring_fold(const int64_t* ranks, int n_ranks, int nd, int step0, int step1, const int32_t* meta,
-                  int meta_words, int n_slots, int64_t shard, int64_t tile_elems, int device, void* stream) {
-  if (shard <= 0 || n_slots <= 0 || n_ranks < 1 || n_ranks > kFoldMaxRanks || nd < 2 || step0 < 0 ||
-      step1 > nd || step0 >= step1 || meta_words < n_slots || meta_words > kFoldMetaWords ||
-      ranks == nullptr || meta == nullptr)
+// K6 ring step `step` of the n_ranks ranks of card `device`: one launch on
+// `stream` (a stream of that card); the caller orders the steps (events
+// between cards). ranks: n_ranks records of 9 int64 (bits, acc, own slot 0,
+// own slot 1, left neighbour's slot 0 and 1, rank index, meta offset, k);
+// meta: meta_words int32 (see FoldParams). Both are host memory, copied
+// into the launch's parameter block.
+int dvc_ring_fold(const int64_t* ranks, int n_ranks, int nd, int step, const int32_t* meta, int meta_words,
+                  int n_slots, int64_t shard, int64_t tile_elems, int device, void* stream) {
+  if (shard <= 0 || n_slots <= 0 || n_ranks < 1 || n_ranks > kFoldMaxRanks || nd < 2 || step < 0 || step >= nd ||
+      meta_words < n_slots || meta_words > kFoldMetaWords || ranks == nullptr || meta == nullptr)
     return cudaErrorInvalidValue;
   FoldParams a;
   a.shard = shard;
@@ -270,22 +471,22 @@ int dvc_ring_fold(const int64_t* ranks, int n_ranks, int nd, int step0, int step
     a.rank[j].k = k;
   }
   int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  cudaError_t err = enter_device(device, &prev);
   int blocks = 0;
   if (err == cudaSuccess) err = grid_for(device, n_slots * (vec ? shard / 8 : shard), n_ranks, &blocks);
   const dim3 grid(blocks, n_ranks);
   auto st = static_cast<cudaStream_t>(stream);
-  for (int s = step0; s < step1 && err == cudaSuccess; ++s) {
-    const bool last = s == nd - 1;
-    for (int j = 0; j < n_ranks; ++j) {  // rank d at step s folds shard (d - s - 1) mod nd
-      const int64_t* r = ranks + 9 * j;
-      FoldRank& f = a.rank[j];
-      f.recv = s > 0 ? reinterpret_cast<const float*>(r[4 + (s - 1) % 2]) : nullptr;
-      f.dst = reinterpret_cast<float*>(last ? r[1] : r[2 + s % 2]);
-      f.col0 = ((r[6] - s - 1) % nd + nd) % nd * shard;
-      f.last = last;
-    }
+  const int s = step;
+  const bool last = s == nd - 1;
+  for (int j = 0; j < n_ranks; ++j) {  // rank d at step s folds shard (d - s - 1) mod nd
+    const int64_t* r = ranks + 9 * j;
+    FoldRank& f = a.rank[j];
+    f.recv = s > 0 ? reinterpret_cast<const float*>(r[4 + (s - 1) % 2]) : nullptr;
+    f.dst = reinterpret_cast<float*>(last ? r[1] : r[2 + s % 2]);
+    f.col0 = ((r[6] - s - 1) % nd + nd) % nd * shard;
+    f.last = last;
+  }
+  if (err == cudaSuccess) {
     if (vec) {
       ring_fold_kernel<8><<<grid, kThreads, 0, st>>>(a);
     } else {
@@ -293,11 +494,92 @@ int dvc_ring_fold(const int64_t* ranks, int n_ranks, int nd, int step0, int step
     }
     err = cudaGetLastError();
   }
-  if (prev != device) {
-    const cudaError_t restore = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = restore;
+  return leave_device(device, prev, err);
+}
+
+// K6 on card `device` holding all nd ranks: one launch folds one ring group
+// of whole slots, on `stream`. ranks: nd records of 4 int64 (bits, acc,
+// meta offset, k), rank d's own chunks [k_d rows, tile_elems] and its
+// accumulator shard [n_tiles, shard]; meta: meta_words int32 (FoldParams).
+// Both are host memory, copied into the launch's parameter block.
+int dvc_ring_fold_card(const int64_t* ranks, int nd, const int32_t* meta, int meta_words, int n_slots,
+                       int64_t shard, int64_t tile_elems, int64_t n_tiles, int device, void* stream) {
+  if (shard <= 0 || n_slots <= 0 || n_slots > 65535 || nd < 2 || nd > kFoldMaxRanks || tile_elems < nd * shard ||
+      meta_words < n_slots || meta_words > kFoldMetaWords || ranks == nullptr || meta == nullptr)
+    return cudaErrorInvalidValue;
+  FoldParams a;
+  a.shard = shard;
+  a.tile_elems = tile_elems;
+  a.n_slots = n_slots;
+  a.n_ranks = nd;
+  for (int i = 0; i < meta_words; ++i) a.meta[i] = meta[i];
+  for (int u = 0; u < n_slots; ++u) {
+    if (a.meta[u] < 0 || a.meta[u] >= n_tiles) return cudaErrorInvalidValue;
   }
-  return err;
+  bool vec = shard % 8 == 0 && tile_elems % 8 == 0;
+  for (int d = 0; d < nd; ++d) {
+    const int64_t* r = ranks + 4 * d;
+    const int32_t off = static_cast<int32_t>(r[2]), k = static_cast<int32_t>(r[3]);
+    if (r[1] == 0 || off < n_slots || k < 0 || off + n_slots + 1 + 2 * k > meta_words || (k > 0 && r[0] == 0))
+      return cudaErrorInvalidValue;
+    // The slot ranges: in order, covering the rank's k positions.
+    const int32_t* slot_ptr = a.meta + off;
+    if (slot_ptr[0] != 0 || slot_ptr[n_slots] != k) return cudaErrorInvalidValue;
+    for (int u = 0; u < n_slots; ++u) {
+      if (slot_ptr[u] > slot_ptr[u + 1]) return cudaErrorInvalidValue;
+    }
+    for (int j = 0; j < k; ++j) {
+      if (slot_ptr[n_slots + 1 + j] < 0) return cudaErrorInvalidValue;
+    }
+    vec = vec && aligned16(reinterpret_cast<const void*>(r[0])) && aligned16(reinterpret_cast<const void*>(r[1]));
+    a.rank[d] = FoldRank{reinterpret_cast<const uint16_t*>(r[0]), nullptr, reinterpret_cast<float*>(r[1]), 0, off, k,
+                         1};
+  }
+  int prev = 0;
+  cudaError_t err = enter_device(device, &prev);
+  if (err == cudaSuccess) {
+    const int64_t groups = vec ? shard / 8 : shard;
+    const dim3 grid(static_cast<unsigned>((groups + kThreads - 1) / kThreads), n_slots, nd);
+    if (vec) {
+      card_ring_fold_kernel<8><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    } else {
+      card_ring_fold_kernel<1><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    }
+    err = cudaGetLastError();
+  }
+  return leave_device(device, prev, err);
+}
+
+// K7 on card `device` holding all nd ranks: one launch writes every rank's
+// full copy, on `stream`. ptrs: nd shard pointers ([rows, shard] each), then
+// nd copy pointers ([rows, nd * shard] each).
+int dvc_ring_allgather_card(const int64_t* ptrs, int nd, int64_t rows, int64_t shard, int device, void* stream) {
+  if (ptrs == nullptr || nd < 2 || nd > kFoldMaxRanks || rows <= 0 || shard <= 0) return cudaErrorInvalidValue;
+  GatherParams a;
+  a.rows = rows;
+  a.shard = shard;
+  a.nd = nd;
+  bool vec = shard % 4 == 0;
+  for (int d = 0; d < nd; ++d) {
+    if (ptrs[d] == 0 || ptrs[nd + d] == 0) return cudaErrorInvalidValue;
+    a.src[d] = reinterpret_cast<const float*>(ptrs[d]);
+    a.dst[d] = reinterpret_cast<float*>(ptrs[nd + d]);
+    vec = vec && aligned16(a.src[d]) && aligned16(a.dst[d]);
+  }
+  int prev = 0;
+  cudaError_t err = enter_device(device, &prev);
+  if (err == cudaSuccess) {
+    const int64_t groups = vec ? shard / 4 : shard;
+    const dim3 grid(static_cast<unsigned>((groups + kThreads * kUnroll - 1) / (kThreads * kUnroll)),
+                    static_cast<unsigned>(rows < 65535 ? rows : 65535), nd);
+    if (vec) {
+      card_ring_allgather_kernel<4><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    } else {
+      card_ring_allgather_kernel<1><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    }
+    err = cudaGetLastError();
+  }
+  return leave_device(device, prev, err);
 }
 
 // (src0, dst0, src0_ld) is the block from the left neighbour; (src1, dst1,

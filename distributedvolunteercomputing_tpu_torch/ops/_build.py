@@ -55,9 +55,13 @@ _SIGNATURES = {
     # (bits, acc, bits_ld, acc_ld, col0, words, n_words, n_tiles, n_chunks, stream)
     "dvc_bf16_fold_chunks": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _P],
     # (ranks, n_ranks, nd, step0, step1, meta, meta_words, n_slots, shard, tile_elems, device, stream)
-    "dvc_ring_fold": [_P, _I, _I, _I, _I, _P, _I, _I, _L, _L, _I, _P],
+    "dvc_ring_fold": [_P, _I, _I, _I, _P, _I, _I, _L, _L, _I, _P],
+    # (ranks, nd, meta, meta_words, n_slots, shard, tile_elems, n_tiles, device, stream)
+    "dvc_ring_fold_card": [_P, _I, _P, _I, _I, _L, _L, _L, _I, _P],
     # (src0, dst0, src0_ld, src1, dst1, src1_ld, rows, cols, dst_ld, stream)
     "dvc_ring_allgather": [_P, _P, _L, _P, _P, _L, _L, _L, _L, _P],
+    # (ptrs, nd, rows, shard, device, stream)
+    "dvc_ring_allgather_card": [_P, _I, _L, _L, _I, _P],
     "dvc_enable_peer_access": [_I, _I],
 }
 

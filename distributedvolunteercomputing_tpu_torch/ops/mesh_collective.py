@@ -24,21 +24,33 @@ K7     ``_ring_ag_kernel``      ``ring_allgather`` / ``ring_allgather_plain``
 
 Each wrapper runs the whole ring schedule, never ordered by a flag a
 kernel spins on, so ranks that share a card cannot deadlock, and is
-ordered like any other op on the current stream. K6 takes nd steps; each
-step is one launch per card (``card_groups``: its grid's y covers that
-card's ranks), with the flush's metadata passed by value in the kernel's
-parameter block (``fold_plan``): no device copy of it, and the partial
-slots are kept across flushes (``RingPartials``). On one card that holds
-all nd ranks a flush is nd launches from one call on the current stream,
-with no event: stream order gives every ordering the ring needs. Across
-cards each card's steps run on the stream of its first rank
-(``MeshCodec.streams``), ordered by CUDA events. K7 takes nd − 1 hops of
-one launch per rank, each on the rank's own stream, ordered by events
-(nd·(nd − 1) launches per result). Streams other than the current one
-first wait for the callers' current streams, and the current streams wait
-for them at the end. ``LAUNCHES`` counts the launches. Given CPU tensors a
-wrapper computes its plain version; given CUDA tensors it launches its
-kernels or raises — there is no fallback.
+ordered like any other op on the current stream. Which design runs follows
+from where the ranks live (``_card_layout``), never from a failure:
+
+- **One card holds every rank** (at most ``FOLD_MAX_RANKS``; how a
+  one-GPU machine runs a multi-rank volunteer): K6 is one launch per ring
+  group of a flush
+  (``card_fold_pack``: one group unless the flush's metadata passes
+  ``FOLD_META_WORDS``), which walks each slot's chunks in the ring's order
+  in registers: no partial slot, no step. K7 is one launch per result
+  (``card_gather_pack``), each shard read once. Both run on the card's
+  current stream, with no fork, event or join, their arguments passed by
+  value in the kernel's parameter block.
+- **The ranks span cards**: K6 takes nd steps of one launch per card
+  (``card_groups``: its grid's y covers that card's ranks), each card's
+  steps on the stream of its first rank (``MeshCodec.streams``), ordered by
+  CUDA events; the flush's metadata is passed by value (``fold_plan``) and
+  the partial slots are kept across flushes (``RingPartials``). K7 takes
+  nd − 1 hops of one launch per rank, each on the rank's own stream,
+  ordered by events (nd·(nd − 1) launches per result). Streams other than
+  the current one first wait for the callers' current streams, and the
+  current streams wait for them at the end. ``ring_fold_stepwise`` and
+  ``ring_allgather_stepwise`` are this design by name: they also run with
+  every rank on one card, where a one-GPU machine checks their kernels.
+
+``LAUNCHES`` counts the launches. Given CPU tensors a wrapper computes its
+plain version; given CUDA tensors it launches its kernels or raises — there
+is no fallback.
 
 Sum order: shard b's partial starts on rank b + 1 and travels the ring, each
 rank adding its own chunks' partial (``recv + p``), and the last step adds
@@ -248,6 +260,30 @@ def card_groups(devs: Sequence[torch.device]) -> List[List[int]]:
     return [ranks[i : i + m] for ranks in by_card.values() for i in range(0, len(ranks), m)]
 
 
+def card_fold_pack(
+    ptrs: Sequence[Tuple[int, int]], tiles: Sequence[Sequence[int]], weights, n_tiles: int
+) -> List[Tuple[array.array, array.array, int]]:
+    """K6's launches on a card that holds every rank: one per ring group of
+    ``fold_plan``, as (records, meta, n_slots). ``ptrs[d]``: rank d's (bits,
+    accumulator) pointers. records: per rank int64 (bits, accumulator, meta
+    offset, chunks); meta: the group's ``FoldGroup.meta`` over every rank
+    (``FoldParams`` in ``csrc/ring_collective.cu``)."""
+    out = []
+    for group in fold_plan(tiles, weights, n_tiles):
+        meta, offs = group.meta(range(len(tiles)))
+        rec = array.array("q")
+        for (bits, acc), off, chunks in zip(ptrs, offs, group.chunks):
+            rec.extend((bits, acc, off, len(chunks)))
+        out.append((rec, meta, len(group.rows)))
+    return out
+
+
+def card_gather_pack(srcs: Sequence[int], dsts: Sequence[int]) -> array.array:
+    """K7's one launch on a card that holds every rank: int64 shard
+    pointers (rank order), then the full copies' pointers."""
+    return array.array("q", [*srcs, *dsts])
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -340,17 +376,31 @@ class RingPartials:
         return bufs
 
 
-def _fold_launch(lib, ranks: array.array, nd: int, steps: Tuple[int, int], meta: array.array, n_slots: int,
+def _fold_launch(lib, ranks: array.array, nd: int, step: int, meta: array.array, n_slots: int,
                  shard: int, dev: torch.device, stream: torch.cuda.Stream) -> None:
-    """K6 ring steps [steps[0], steps[1]) of the ranks in ``ranks`` (9 int64
-    each), one launch per step; both buffers are host memory that each
-    launch copies by value."""
-    err = lib.dvc_ring_fold(ranks.buffer_info()[0], len(ranks) // 9, nd, steps[0], steps[1], meta.buffer_info()[0],
+    """K6 ring step ``step`` of the ranks in ``ranks`` (9 int64 each), one
+    launch; both buffers are host memory that the launch copies by value."""
+    err = lib.dvc_ring_fold(ranks.buffer_info()[0], len(ranks) // 9, nd, step, meta.buffer_info()[0],
                             len(meta), n_slots, shard, nd * shard, dev.index, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_fold: CUDA error {err}: {lib.dvc_error_string(err).decode()}")
     with _launch_lock:
-        LAUNCHES["ring_fold"] += steps[1] - steps[0]
+        LAUNCHES["ring_fold"] += 1
+
+
+def _card_fold(lib, accs, bits, tiles, weights, n_tiles: int, shard: int, dev: torch.device) -> None:
+    """K6 on a card that holds every rank: one launch per ring group on the
+    card's current stream (``card_fold_pack``)."""
+    nd = len(accs)
+    ptrs = [(x.data_ptr() if x.numel() else 0, a.data_ptr()) for x, a in zip(bits, accs)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for rec, meta, n_slots in card_fold_pack(ptrs, tiles, weights, n_tiles):
+        err = lib.dvc_ring_fold_card(rec.buffer_info()[0], nd, meta.buffer_info()[0], len(meta), n_slots, shard,
+                                     nd * shard, n_tiles, dev.index, stream)
+        if err != 0:
+            raise RuntimeError(f"ring_fold: CUDA error {err}: {lib.dvc_error_string(err).decode()}")
+        with _launch_lock:
+            LAUNCHES["ring_fold"] += 1
 
 
 def ring_fold(
@@ -367,33 +417,59 @@ def ring_fold(
     own whole chunks, int16 bf16 bits [k_d, nd·shard] (short chunks
     zero-padded); ``tiles[d]`` / ``weights[d]``: their tiles and weights
     (host values; a zero weight folds nothing). ``partials``: the partial
-    slots, kept by the caller across flushes (CUDA only). ``streams``: one per
-    rank (CUDA only; each card's steps run on the stream of its first rank)."""
+    slots of the path across cards, kept by the caller across flushes.
+    ``streams``: one per rank (CUDA ranks across cards; each card's steps run
+    on the stream of its first rank). On one card the fold runs on its
+    current stream and touches neither."""
     nd, n_tiles, shard = _check_accs(accs)
     _check_chunks(accs, bits, tiles, weights, nd, shard)
     if accs[0].device.type == "cpu":
         ring_fold_plain(accs, bits, tiles, weights)
         return
-    streams = _check_streams(streams, accs)
-    plan = fold_plan(tiles, weights, n_tiles)
-    if not plan:
+    devs = tuple(a.device for a in accs)
+    if len(_card_layout(devs)[0]) > 1:
+        ring_fold_stepwise(accs, bits, tiles, weights, partials, streams)
+        return
+    from distributedvolunteercomputing_tpu_torch.ops import _build
+
+    _card_fold(_build.load_library(), accs, bits, tiles, weights, n_tiles, shard, devs[0])
+
+
+def ring_fold_stepwise(
+    accs: Sequence[torch.Tensor],
+    bits: Sequence[torch.Tensor],
+    tiles: Sequence[Sequence[int]],
+    weights: Sequence[Sequence[float]],
+    partials: RingPartials,
+    streams: Optional[Sequence[Optional[torch.cuda.Stream]]] = None,
+) -> None:
+    """K6's stepwise design, which ``ring_fold`` runs when the ranks span
+    cards: nd ring steps of one launch per card group (``card_groups``), on
+    the stream of each group's first rank, forked, ordered by events and
+    joined, the partials in ``partials``. It also runs with every rank on
+    one card (stream order alone then orders the steps), so a one-card
+    machine can hold its kernel against the plain version. CPU tensors
+    take the plain version."""
+    nd, n_tiles, shard = _check_accs(accs)
+    _check_chunks(accs, bits, tiles, weights, nd, shard)
+    if accs[0].device.type == "cpu":
+        ring_fold_plain(accs, bits, tiles, weights)
         return
     from distributedvolunteercomputing_tpu_torch.ops import _build
 
     lib = _build.load_library()
     devs = tuple(a.device for a in accs)
     cards, card_of = _card_layout(devs)
-    # One card: its current stream, where stream order is all the ring
-    # needs (there is nothing to fork or join). Several: the stream of each
-    # card's first rank, forked, ordered by events and joined.
-    one_card = len(cards) == 1
-    cstreams = [torch.cuda.current_stream(devs[0])] if one_card else [streams[ranks[0]] for ranks in cards]
+    streams = _check_streams(streams, accs)
+    plan = fold_plan(tiles, weights, n_tiles)
+    if not plan:
+        return
+    cstreams = [streams[ranks[0]] for ranks in cards]
     slots = partials.get(devs, max(len(g.rows) for g in plan), shard)
     bits_p = [x.data_ptr() if x.numel() else 0 for x in bits]
     slot_p = [(buf.data_ptr(), buf.data_ptr() + buf.stride(0) * 4) for buf in slots]
     base = [(bits_p[d], accs[d].data_ptr(), *slot_p[d], *slot_p[(d - 1) % nd], d) for d in range(nd)]
-    if not one_card:
-        _fork(cstreams, devs)
+    _fork(cstreams, devs)
     prev: List[torch.cuda.Event] = []
     for group in plan:
         launches = []
@@ -403,10 +479,6 @@ def ring_fold(
             for d, off in zip(ranks, offs):
                 rec.extend((*base[d], off, len(group.chunks[d])))
             launches.append((rec, meta))
-        if one_card:  # the whole ring in one call: nd launches, stream order between them
-            rec, meta = launches[0]
-            _fold_launch(lib, rec, nd, (0, nd), meta, len(group.rows), shard, devs[0], cstreams[0])
-            continue
         for s in range(nd):
             last = s == nd - 1
             cur = []
@@ -422,27 +494,56 @@ def ring_fold(
                     for w in sorted(waits - {c}):
                         st.wait_event(prev[w])
                 rec, meta = launches[c]
-                _fold_launch(lib, rec, nd, (s, s + 1), meta, len(group.rows), shard, devs[ranks[0]], st)
+                _fold_launch(lib, rec, nd, s, meta, len(group.rows), shard, devs[ranks[0]], st)
                 cur.append(_record(st))
             prev = cur
-    if not one_card:
-        _join(cstreams, devs)
+    _join(cstreams, devs)
 
 
 def ring_allgather(
     accs: Sequence[torch.Tensor], streams: Optional[Sequence[Optional[torch.cuda.Stream]]] = None
 ) -> List[torch.Tensor]:
-    """K7. Every rank's copy of the full accumulator [n_tiles, nd·shard]:
-    nd − 1 hops, rank d pulling block (d − s − 1) mod nd from its left
-    neighbour at hop s (from the neighbour's shard at hop 0, with its own
-    shard copied in the same launch)."""
+    """K7. Every rank's copy of the full accumulator [n_tiles, nd·shard].
+    On a card that holds every rank: one launch on its current stream that
+    reads each shard once (``streams`` unused). Across cards: nd − 1 hops,
+    rank d pulling block (d − s − 1) mod nd from its left neighbour at hop s
+    (from the neighbour's shard at hop 0, with its own shard copied in the
+    same launch), on the ranks' ``streams``."""
     nd, n_tiles, shard = _check_accs(accs)
     if accs[0].device.type == "cpu":
         return ring_allgather_plain(accs)
-    streams = _check_streams(streams, accs)
-    devs = [a.device for a in accs]
+    devs = tuple(a.device for a in accs)
+    if len(_card_layout(devs)[0]) > 1:
+        return ring_allgather_stepwise(accs, streams)
+    from distributedvolunteercomputing_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    outs = [torch.empty((n_tiles, nd * shard), dtype=torch.float32, device=dev) for dev in devs]
+    ptrs = card_gather_pack([a.data_ptr() for a in accs], [o.data_ptr() for o in outs])
+    err = lib.dvc_ring_allgather_card(ptrs.buffer_info()[0], nd, n_tiles, shard, devs[0].index,
+                                      torch.cuda.current_stream(devs[0]).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ring_allgather: CUDA error {err}: {lib.dvc_error_string(err).decode()}")
+    with _launch_lock:
+        LAUNCHES["ring_allgather"] += 1
+    return outs
+
+
+def ring_allgather_stepwise(
+    accs: Sequence[torch.Tensor], streams: Optional[Sequence[Optional[torch.cuda.Stream]]] = None
+) -> List[torch.Tensor]:
+    """K7's stepwise design, which ``ring_allgather`` runs when the ranks
+    span cards: nd − 1 hops of one launch per rank on the ranks' ``streams``,
+    ordered by events. It also runs with every rank on one card, so a
+    one-card machine can hold its kernel against the plain version. CPU
+    tensors take the plain version."""
+    nd, n_tiles, shard = _check_accs(accs)
+    if accs[0].device.type == "cpu":
+        return ring_allgather_plain(accs)
+    devs = tuple(a.device for a in accs)
     width = nd * shard
     outs = [torch.empty((n_tiles, width), dtype=torch.float32, device=dev) for dev in devs]
+    streams = _check_streams(streams, accs)
     _fork(streams, devs)
     prev: List[torch.cuda.Event] = []
     for s in range(nd - 1):

@@ -140,7 +140,8 @@ def test_import_loads_no_jax():
 
 SCRIPTS = [REPO / "chip_smoke.py"] + ENTRY_SCRIPTS + [REPO / "experiments" / f for f in (
     "torch_step_profile.py", "torch_ring_cards.py", "torch_dp_trace.py", "torch_attention_shapes.py",
-    "torch_dq_variants.py", "torch_codec_variants.py", "torch_avg_ab.py", "torch_departed_member.py")]
+    "torch_dq_variants.py", "torch_codec_variants.py", "torch_avg_ab.py", "torch_departed_member.py",
+    "torch_ring_variants.py")]
 
 
 @pytest.mark.parametrize("path", SCRIPTS + [p for _, p in _port_modules()], ids=lambda p: p.name)

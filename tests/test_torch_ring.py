@@ -429,3 +429,199 @@ def test_card_groups_give_one_launch_per_card_per_step(cards, want, per_flush):
         _emulate_k6(group, groups, spread, bits)
         for a, b in zip(one, spread):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The one-card designs: K6's and K7's packed arguments, read as the kernels
+# read them
+# ---------------------------------------------------------------------------
+
+K6_BATCH = 4  # csrc/ring_collective.cu kFoldBatch: chunk loads issued before they fold
+
+
+def _widen(bits):
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _read_card_fold(rec, meta, n_slots, shard, mem):
+    """What one ``card_ring_fold_kernel`` launch computes, read from its
+    packed arguments alone. ``mem`` maps each pointer of ``rec`` to its numpy
+    array (bits uint16 [k, tile], accumulator f32 [n_tiles, shard]). Every
+    (slot u, shard b) block walks the slot's chunks as the kernel does:
+    ranks b + 1, ..., b, each rank's chunks in staging order, up to
+    ``K6_BATCH`` loads before they fold, each rank's partial closed into v
+    when the walk passes it, the accumulator row loaded first and stored
+    last. The columns, the kernel's threads, fold as one vector."""
+    rec = np.frombuffer(rec, np.int64).reshape(-1, 4)
+    meta = np.frombuffer(meta, np.int32)
+    nd = len(rec)
+    for b in range(nd):
+        cols = slice(b * shard, (b + 1) * shard)
+        for u in range(n_slots):
+            acc = mem[rec[b, 1]][meta[u]].copy()
+
+            def walk():  # RingWalk::next: (ring position, bits row, weight)
+                r = (b + 1) % nd
+                for step in range(nd):
+                    bits, _, off, k = rec[r]
+                    for j in range(meta[off + u], meta[off + u + 1]):
+                        chunk = meta[off + n_slots + 1 + j]
+                        yield step, mem[bits][chunk], meta[off + n_slots + 1 + k + j : off + n_slots + 2 + k + j].view(
+                            np.float32)[0]
+                    r = (r + 1) % nd
+
+            chunks = walk()
+            p, v, closed = np.zeros(shard, np.float32), None, 0
+
+            def close():
+                nonlocal p, v, closed
+                v = p if closed == 0 else v + p
+                p, closed = np.zeros(shard, np.float32), closed + 1
+
+            while True:
+                batch = [c for _, c in zip(range(K6_BATCH), chunks)]
+                loaded = [(at, _widen(row[cols]), np.float32(w)) for at, row, w in batch]
+                for at, x, w in loaded:
+                    while closed < at:
+                        close()
+                    p = p + w * x
+                if len(batch) < K6_BATCH:
+                    break
+            while closed < nd:
+                close()
+            mem[rec[b, 1]][meta[u]] = acc + v
+
+
+def _special_bits(bits, rng):
+    """Random bit patterns (every exponent: subnormals, inf, NaN) with the
+    special values up front in every chunk."""
+    sp = np.array([0x0000, 0x8000, 0x7F80, 0xFF80, 0x7FC0, 0xFFC0, 0x7F81, 0x0001, 0x8001, 0x7F7F], np.uint16)
+    out = rng.integers(0, 1 << 16, bits.shape, dtype=np.uint16)
+    out[:, : len(sp)] = sp
+    return torch.from_numpy(out.view(np.int16))
+
+
+def _assert_bit_equal(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    fin = np.isfinite(want)
+    assert np.array_equal(got.view(np.int32)[fin], want.view(np.int32)[fin])
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(got[np.isinf(want)], want[np.isinf(want)])
+
+
+@pytest.mark.parametrize("case", ["repeats", "special", "ragged", "split", "empty_rank"])
+@pytest.mark.parametrize("nd", [2, 3, 4])
+def test_card_fold_pack_read_as_the_kernel_matches_plain(nd, case, monkeypatch):
+    """K6 on a card that holds every rank: the launches ``card_fold_pack``
+    packs (records and metadata words), read as ``card_ring_fold_kernel``
+    walks them, give ``ring_fold_plain``'s result bit for bit on finite lanes
+    (inf and NaN lanes matching): repeated tiles within and across ranks, a
+    zero weight, special bit patterns, a width that is not a multiple of 8
+    (the kernel's scalar path), a flush that splits into several rings of
+    whole slots, and a rank with no chunk."""
+    k, n_tiles, tile = {"split": (40, 23, 8 * nd), "empty_rank": (nd - 1, 5, 8 * nd)}.get(case, (13, 7, 8 * nd))
+    if case == "ragged":
+        tile = 13 * nd
+    accs, bits, tiles, weights = _flush(nd, k, n_tiles, tile, seed=nd * 10 + len(case))
+    if case == "special":
+        rng = np.random.default_rng(nd)
+        bits = [_special_bits(x.numpy(), rng) for x in bits]
+    if case == "split":
+        monkeypatch.setattr(mcol, "FOLD_META_WORDS", 40 + 8 * nd)
+    shard = tile // nd
+    want = [a.clone() for a in accs]
+    mcol.ring_fold_plain(want, bits, tiles, weights)
+    mem = {}
+    for d in range(nd):
+        mem[1000 + d] = bits[d].numpy().view(np.uint16)
+        mem[2000 + d] = accs[d].numpy().copy()
+    ptrs = [(1000 + d if len(tiles[d]) else 0, 2000 + d) for d in range(nd)]
+    launches = mcol.card_fold_pack(ptrs, tiles, weights, n_tiles)
+    assert len(launches) == len(mcol.fold_plan(tiles, weights, n_tiles))
+    assert (len(launches) > 1) == (case == "split")
+    if case == "empty_rank":
+        assert not tiles[-1]
+    rows = []
+    for rec, meta, n_slots in launches:
+        assert len(meta) <= mcol.FOLD_META_WORDS and len(rec) == 4 * nd
+        rows += list(meta[:n_slots])
+        with np.errstate(all="ignore"):
+            _read_card_fold(rec, meta, n_slots, shard, mem)
+    assert rows == sorted({t for ts in tiles for t in ts})
+    for d in range(nd):
+        _assert_bit_equal(mem[2000 + d], want[d].numpy())
+
+
+def test_card_fold_pack_of_an_empty_flush_launches_nothing():
+    assert mcol.card_fold_pack([(0, 1), (0, 2)], [[], []], [[], []], 4) == []
+    with pytest.raises(ValueError, match="tile index"):
+        mcol.card_fold_pack([(1, 1), (0, 2)], [[4], []], [[1.0], []], 4)
+
+
+def _read_card_gather(ptrs, rows, shard, mem):
+    """What one ``card_ring_allgather_kernel`` launch computes from its
+    packed pointers: block (x, row, b) reads shard b's row once and stores it
+    into columns [b·shard, (b+1)·shard) of every copy."""
+    ptrs = np.frombuffer(ptrs, np.int64)
+    nd = len(ptrs) // 2
+    for b in range(nd):
+        for row in range(rows):
+            x = mem[ptrs[b]][row].copy()
+            for d in range(nd):
+                mem[ptrs[nd + d]][row, b * shard : (b + 1) * shard] = x
+
+
+@pytest.mark.parametrize("shard", [8, 13])
+@pytest.mark.parametrize("nd", [2, 3, 4])
+def test_card_gather_pack_read_as_the_kernel_matches_plain(nd, shard):
+    """K7 on a card that holds every rank: its one launch's packed pointers,
+    read as ``card_ring_allgather_kernel`` reads them, give
+    ``ring_allgather_plain``'s copies bit for bit (special values included;
+    a shard width of 13 takes the kernel's scalar path)."""
+    rng = np.random.default_rng(nd * shard)
+    rows = 5
+    accs = [torch.from_numpy(rng.standard_normal((rows, shard)).astype(np.float32)) for _ in range(nd)]
+    accs[0][0, :4] = torch.tensor([float("nan"), float("inf"), -0.0, 1e-40])
+    want = mcol.ring_allgather_plain(accs)
+    mem = {100 + d: a.numpy() for d, a in enumerate(accs)}
+    mem.update({200 + d: np.full((rows, nd * shard), np.nan, np.float32) for d in range(nd)})
+    ptrs = mcol.card_gather_pack([100 + d for d in range(nd)], [200 + d for d in range(nd)])
+    assert list(ptrs) == [100 + d for d in range(nd)] + [200 + d for d in range(nd)]
+    _read_card_gather(ptrs, rows, shard, mem)
+    for d in range(nd):
+        assert np.array_equal(mem[200 + d].view(np.int32), want[d].numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("name", ["batch1", "batch8", "unroll2", "unroll8"])
+def test_ring_variant_patches_apply_to_the_source(name):
+    """``experiments/torch_ring_variants.py`` patches
+    ``csrc/ring_collective.cu`` by text: every patch must find its line in
+    the shipped source exactly once (an edit that moves one breaks the
+    experiment, and this says so on the CPU)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "experiments" / "torch_ring_variants.py"
+    spec = importlib.util.spec_from_file_location("torch_ring_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    text = mod.patched_source(name)
+    assert text != mod.RING.read_text()
+
+
+@pytest.mark.parametrize("nd", [2, 4])
+def test_stepwise_entry_points_take_the_plain_version_on_the_cpu(nd):
+    """``ring_fold_stepwise`` / ``ring_allgather_stepwise`` (the design across
+    cards, by name) give the plain versions' bits on CPU tensors and launch
+    nothing."""
+    accs, bits, tiles, weights = _flush(nd, 9, 5, 8 * nd, seed=nd)
+    want = [a.clone() for a in accs]
+    mcol.ring_fold_plain(want, bits, tiles, weights)
+    before = dict(mcol.LAUNCHES)
+    mcol.ring_fold_stepwise(accs, bits, tiles, weights, mcol.RingPartials())
+    outs = mcol.ring_allgather_stepwise(accs)
+    assert mcol.LAUNCHES == before
+    for a, b in zip(accs, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for out, ref in zip(outs, mcol.ring_allgather_plain(want)):
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
