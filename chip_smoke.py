@@ -187,9 +187,37 @@ Phases, each printing one JSON line:
             card), K1-K3 64 / 32 / 32 per step; it prints the card's used
             memory at the phase's peak (``CardMemorySampler``).
 
+The trainer's other modes (run after phases 4, 6, 6, 14 and 16):
+19. multi_step  gpt2_small at full width, batch 8: ``MULTI_STEPS`` single
+            steps and the same from the same init on the same batches at
+            ``steps_per_call`` ``MULTI_SPC``; losses and every param leaf
+            within ``PARITY_TOL["multi"]`` (bit-equality reported), K1-K3
+            24 / 12 / 12 per step in each run, samples/s of both; then
+            ``evaluate`` on the held-out stream (K1 12 per batch under
+            no_grad, no K2 / K3) and one batch's eval loss through the
+            kernels against the plain core (``PARITY_TOL["eval"]``).
+20. grad_averaging  phase 6 in gradient mode (``average_what="grads"``): a
+            round every step for ``GRAD_STEPS`` steps, each contribution one
+            batch of weight; phase 6's checks with every round's values
+            within ``AVG_TOL``, every round committed, K1-K3 per step, and
+            the two volunteers' params within ``adam_drift_bound``
+            (``GRAD_EPS``).
+21. outer_sync  phase 6 with the outer Nesterov step (``OUTER``: lr 0.7,
+            momentum 0.9) until ``OUTER_COMMITS`` rounds committed on each:
+            the merged params on the card bit-equal to a numpy replay of
+            the recorded averages (round 1 the plain average), and a
+            checkpoint's ``.outer.npz`` sidecar round-tripping bit-equal.
+22. mnist_file  capability config 6: ``run_volunteer_torch.py`` on a file of
+            ``experiments/make_npz.py --task mnist`` (``MNIST_FILE_ARGV``):
+            exit 0, the target crossed, a finite ``eval`` event at every
+            multiple of 50.
+23. resnet_file  capability config 7: phase 16 with both volunteers on a
+            ``--task cifar10`` file (per-peer shuffles), phase 6's checks.
+
 Then one line listing every kernel (``launches_lifecycle``: the counts of
 phase 10, ``launches_protocols`` those of phases 11-13, ``launches_models``
-those of phases 15-18, ``shapes_models`` K1-K3 at the models' shapes),
+those of phases 15-18, ``launches_trainer_modes`` those of phases 19-23,
+``shapes_models`` K1-K3 at the models' shapes),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script
 exits non-zero and prints no ``ok`` line. It needs one card and no network.
@@ -1165,12 +1193,23 @@ class ProtoRecorder:
 
 
 def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging", model: str = "gpt2_small",
-                    batch_size: int = 8, every: int = AVG_EVERY, lr=None) -> dict:
+                    batch_size: int = 8, every: int = AVG_EVERY, lr=None, extra=None, commits=AVG_COMMITS,
+                    max_steps: int = AVG_MAX_STEPS, keep: int = 2, hooks=None, all_rounds: bool = False,
+                    check_flash: bool = False) -> dict:
     """Two full-width volunteers averaging in blocking sync rounds (see the
     module doc): gpt2_small at batch 8 every ``AVG_EVERY`` steps by
     default. With ``mesh`` (a port ``Mesh``) each volunteer trains
     data-parallel over its ranks and its codec runs on them; ``collective``
-    "ring" folds the leader's rounds on K6/K7."""
+    "ring" folds the leader's rounds on K6/K7. ``extra`` adds config fields
+    (``average_what``, ``data_path``, the outer optimizer); ``commits=None``
+    trains ``max_steps`` steps instead of stopping on a count of committed
+    rounds; each recorder keeps the payload and result of its last ``keep``
+    committed calls; ``hooks`` (``setup(vols, recs)`` before training,
+    ``finish(vols, recs, failures) -> dict`` after it, before the volunteers
+    stop) add a phase's own checks; ``all_rounds`` checks the values of
+    every round both recorded, not one streamed round; ``check_flash``
+    holds K1-K3 to their launches per step of the steps trained and returns
+    their counts too."""
     from distributedvolunteercomputing_tpu_torch import native
     from distributedvolunteercomputing_tpu_torch.ops import mesh_collective as mcol
     from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
@@ -1187,7 +1226,7 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
         round has both volunteers in it, so the k-th committed round of one
         is the k-th of the other; each call also records whether this
         volunteer led a streamed round."""
-        rec = ProtoRecorder(vol)
+        rec = ProtoRecorder(vol, keep=keep)
         gauges = vol.averager._agg_gauges
         streamed_before = [0]
 
@@ -1199,14 +1238,14 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
             call["led_streamed"] = gauges.get("streamed_contribs", 0) > streamed_before[0]
 
         rec.before, rec.after = before, after
-        rec.done = lambda r: r.committed() >= AVG_COMMITS
+        rec.done = (lambda r: r.committed() >= commits) if commits else (lambda r: False)
         return rec
 
     async def run_pair():
         base = dict(model=model, batch_size=batch_size, averaging="sync", wire="bf16",
-                    average_every=every, overlap=AVG_OVERLAP, steps=AVG_MAX_STEPS,
+                    average_every=every, overlap=AVG_OVERLAP, steps=max_steps,
                     mesh=mesh if mesh is not None else "", mesh_collective=collective,
-                    **({"lr": lr} if lr is not None else {}))
+                    **({"lr": lr} if lr is not None else {}), **(extra or {}))
         paths = [out_dir / f"{phase}_volunteer{i}.jsonl" for i in range(2)]
         for p in paths:
             p.unlink(missing_ok=True)
@@ -1219,6 +1258,8 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
         await v1.start()
         start_s = time.perf_counter() - t0
         recs = [recording(v0), recording(v1)]
+        if hooks is not None:
+            hooks.setup((v0, v1), recs)
         torch.cuda.synchronize()
         reset_all_launch_counts()
         t0 = time.perf_counter()
@@ -1227,13 +1268,16 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
             # at once would strand the member's fetch of the last round.
             # stop() alone ends membership; the round cap only ends training.
             summaries = await asyncio.gather(v0.train(), v1.train())
+            torch.cuda.synchronize()
+            launches = {**dict(mc.LAUNCHES), **dict(mcol.LAUNCHES), **flash_launches()}
+            run_s = time.perf_counter() - t0
+            own = hooks.finish((v0, v1), recs, hook_failures) if hooks is not None else {}
         finally:
             await asyncio.gather(v0.stop(), v1.stop())
-        torch.cuda.synchronize()
-        launches = {**dict(mc.LAUNCHES), **dict(mcol.LAUNCHES), **flash_launches()}
-        return summaries, launches, start_s, time.perf_counter() - t0, paths, recs
+        return summaries, launches, start_s, run_s, paths, recs, own
 
-    summaries, launches, start_s, run_s, paths, recs = asyncio.run(run_pair())
+    hook_failures: list = []
+    summaries, launches, start_s, run_s, paths, recs, own = asyncio.run(run_pair())
     round_launches = [len(r.calls) for r in recs]
     groups_formed = [r.groups for r in recs]
     committed = [r.committed() for r in recs]
@@ -1257,9 +1301,10 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
     )
     folder = "ring" if ring else "staged"
     row = {
-        "phase": phase, "model": model, "batch_size": batch_size, "lr": lr, "max_steps": AVG_MAX_STEPS,
+        "phase": phase, "model": model, "batch_size": batch_size, "lr": lr, "max_steps": max_steps,
+        "extra": {k: (v if k != "data_path" else Path(v).name) for k, v in (extra or {}).items()},
         "mesh": repr(mesh) if mesh is not None else None, "collective": collective,
-        "commits": AVG_COMMITS, "steps": [s["steps"] for s in summaries],
+        "commits": commits, "steps": [s["steps"] for s in summaries],
         "average_every": every, "overlap": AVG_OVERLAP, "wire": "bf16",
         "params": int(recs[0].buffers[-1]["payload"].size) if recs[0].buffers else None,
         "start_s": start_s, "run_s": run_s, "rounds_ok": rounds,
@@ -1275,7 +1320,7 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
         "launches": launches, "codec_launches_expected": expect,
         "codec_launches_per_committed_round": {k: launches[k] / max(1, rounds[0]) for k in expect},
     }
-    failures = []
+    failures = list(hook_failures)
     # A skipped round is allowed (reported): a volunteer that forms no group,
     # or forms one alone, skips it. Committed rounds count on both.
     if min(rounds) < 2 or rounds[0] != rounds[1] or any(row["rounds_degraded"]):
@@ -1297,48 +1342,453 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
         failures.append(f"codec launches {[launches[k] for k in expect]} != expected {expect}")
     if not all(losses) or not all(math.isfinite(x) for ls in losses for x in ls):
         failures.append("missing or non-finite losses")
-    row["values"] = check_averaged_values([r.buffers for r in recs], failures)
+    if check_flash:
+        per_step = flash_per_step(model)
+        row["flash_expected"] = {k: n * sum(s["steps"] for s in summaries) for k, n in zip(KERNELS, per_step)}
+        if {k: launches[k] for k in KERNELS} != row["flash_expected"]:
+            failures.append(f"K1-K3 launches {[launches[k] for k in KERNELS]} != {row['flash_expected']}")
+    row["values"] = check_averaged_values([r.buffers for r in recs], failures, all_rounds=all_rounds)
+    row.update(own)
     emit(row)
     if failures:
         raise AssertionError(f"{phase} phase: {failures}")
+    if check_flash:
+        return {k: launches[k] for k in (*expect, *KERNELS)}
     return {k: launches[k] for k in expect}
 
 
-def check_averaged_values(records, failures) -> dict:
+def check_averaged_values(records, failures, all_rounds: bool = False, nearest_leads: bool = False) -> dict:
     """One streamed round: the leader's result against the f64 weighted mean
-    of the two payloads, the member's against the leader's (``AVG_TOL``)."""
-    import numpy as np
+    of the two payloads, the member's against the leader's (``AVG_TOL``).
+    With ``all_rounds``, every round both recorded, streamed or not: its
+    leader is the volunteer whose result is nearer the weighted mean (a
+    dense round has no streamed gauge to name it). The arithmetic is f64,
+    on the card."""
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+
+    def f64(a):
+        return torch.from_numpy(a).to(dev, torch.float64)
 
     by_round = [{r["round"]: r for r in rec} for rec in records]
     common = sorted(set(by_round[0]) & set(by_round[1]), reverse=True)
+    if all_rounds:
+        rows = []
+        for rnd in sorted(common):
+            row = check_averaged_values([[by_round[0][rnd]], [by_round[1][rnd]]], failures, nearest_leads=True)
+            rows.append(row)
+        if len(rows) < 2:
+            failures.append(f"values of {len(rows)} rounds recorded on both volunteers, want >= 2")
+        return {"rounds": rows}
     for rnd in common:
         pair = (by_round[0][rnd], by_round[1][rnd])
         leaders = [i for i, r in enumerate(pair) if r["led_streamed"]]
-        if not leaders:
+        if not leaders and not nearest_leads:
             continue
-        lead, memb = pair[leaders[0]], pair[1 - leaders[0]]
-        x0, x1 = pair[0]["payload"].astype(np.float64), pair[1]["payload"].astype(np.float64)
+        x0, x1 = f64(pair[0]["payload"]), f64(pair[1]["payload"])
         w0, w1 = pair[0]["weight"], pair[1]["weight"]
         want = (w0 * x0 + w1 * x1) / (w0 + w1)
-        scale = np.maximum(np.abs(x0), np.abs(x1))
+        results = [f64(p["result"]) for p in pair]
+        if not leaders:
+            leaders = [min((0, 1), key=lambda i: (results[i] - want).abs().max().item())]
+        lead_r, memb_r = results[leaders[0]], results[1 - leaders[0]]
+        scale = torch.maximum(x0.abs(), x1.abs())
         tol = AVG_TOL
         lim = (tol["bf16_u"] + tol["f32_ulps"]) * scale + tol["floor"]
-        err = np.abs(lead["result"] - want)
-        lr = lead["result"].astype(np.float64)
-        lim_m = tol["bf16_u"] * np.abs(lr) + tol["f32_ulps"] * np.abs(lr) + tol["floor"]
-        err_m = np.abs(memb["result"] - lr)
+        err = (lead_r - want).abs()
+        lim_m = tol["bf16_u"] * lead_r.abs() + tol["f32_ulps"] * lead_r.abs() + tol["floor"]
+        err_m = (memb_r - lead_r).abs()
         out = {
-            "round": rnd, "step": lead["step"], "weights": [w0, w1], "n": int(x0.size),
-            "leader": leaders[0], "leader_limit_used": float((err / lim).max()),
-            "leader_max_abs_err": float(err.max()), "member_limit_used": float((err_m / lim_m).max()),
-            "member_max_abs_err": float(err_m.max()), "tol": tol,
-            "finite": bool(np.isfinite(lead["result"]).all() and np.isfinite(memb["result"]).all()),
+            "round": rnd, "step": pair[leaders[0]]["step"], "weights": [w0, w1], "n": int(x0.numel()),
+            "leader": leaders[0], "leader_limit_used": (err / lim).max().item(),
+            "leader_max_abs_err": err.max().item(), "member_limit_used": (err_m / lim_m).max().item(),
+            "member_max_abs_err": err_m.max().item(), "tol": tol,
+            "finite": bool(torch.isfinite(lead_r).all() and torch.isfinite(memb_r).all()),
         }
+        del x0, x1, want, results, lead_r, memb_r, scale, lim, err, lim_m, err_m
         if not (out["finite"] and out["leader_limit_used"] <= 1.0 and out["member_limit_used"] <= 1.0):
             failures.append(f"averaged values outside AVG_TOL: {out}")
         return out
     failures.append("no streamed round with both results recorded")
     return {}
+
+
+# ---------------------------------------------------------------------------
+# the trainer's modes: multi-step calls, eval, gradient rounds, the outer
+# Nesterov step, .npz data (capability configs 6 and 7)
+# ---------------------------------------------------------------------------
+
+MULTI_STEPS = 8  # steps of each run of multi_step
+MULTI_SPC = 4  # steps_per_call of the chunked run: two chunks of 4
+EVAL_BATCHES = 2  # held-out batches of the eval check (K1 only, 12 a batch)
+# Chunked against single steps on the card: the same ops in the same order,
+# so bit-equal is expected; the limits are the dp phase's for the loss and
+# each param leaf's update (PARITY_TOL["dp"]'s reasoning: Adam turns a
+# rounding difference of a near-zero gradient into up to ~lr), in case a
+# reduction on the card (cuBLAS, the embedding backward) is not deterministic.
+PARITY_TOL["multi"] = {"loss": 1e-6, "update_l2": 1e-3}
+# Eval through the kernels against the plain attention core on one batch,
+# bf16 on the card: the trainer parity's bf16 loss limit.
+PARITY_TOL["eval"] = {"loss": PARITY_TOL["bf16"]["loss"]}
+GRAD_STEPS = 4  # steps of each grad_averaging volunteer: a gradient round every step
+# grad_averaging: both volunteers start from one init and, at every step
+# whose round committed on both, apply the same round result: the leader its
+# f32 mean, the member that mean through the bf16 wire, each element within
+# bf16_u of the leader's. The global-norm clip scales both by norms within
+# bf16_u of each other, so the two applied gradients differ elementwise by a
+# relative GRAD_EPS = 2 bf16_u + bf16_u^2. Adam's update lr * m_hat /
+# (sqrt(v_hat) + eps) then differs per element and step by at most
+# lr_t * 2 GRAD_EPS / (1 - GRAD_EPS) * sqrt(c2) / c1 * sqrt(sum_k w_k^2 / z_k)
+# (Cauchy-Schwarz on the moment sums, w_k = (1 - b1) b1^(t-k), z_k = (1 - b2)
+# b2^(t-k), c1 = 1 - b1^t, c2 = 1 - b2^t; the gain is 1.00-1.01 for t <= 8),
+# summed over the steps (``adam_drift_bound``), plus one f32 rounding of
+# each side's add per step (2 * 2^-24 * |p|). A step whose round did not
+# commit on both applies different local gradients: the bound then does
+# not hold, and the phase requires every round to commit.
+GRAD_EPS = 2 * AVG_TOL["bf16_u"] + AVG_TOL["bf16_u"] ** 2
+OUTER = dict(outer_optimizer="nesterov", outer_lr=0.7, outer_momentum=0.9)  # the reference's defaults
+OUTER_COMMITS = 3  # committed rounds of each outer_sync volunteer: round 1 adopts, 2 and 3 take the Nesterov step
+# Capability configs 6 and 7 (experiments/run_matrix.py config6_file_mnist,
+# config7_file_resnet): the files come from experiments/make_npz.py.
+# ``--target-mode record`` is added to config 6's flags: with "stop" the run
+# ends at the crossing (step ~3), before its first eval point at 50, and the
+# eval stream would never run on the card.
+MNIST_FILE_ARGV = ["--model", "mnist_mlp", "--averaging", "none", "--steps", "300", "--batch-size", "32",
+                   "--lr", "0.01", "--target-loss", "0.15", "--eval-every", "50", "--eval-batches", "4",
+                   "--target-mode", "record"]
+
+
+def adam_drift_bound(lrs, b1: float, b2: float, rel: float) -> float:
+    """The largest difference two Adam runs can reach per element after
+    len(lrs) steps whose gradients differ elementwise by at most ``rel``
+    relative (see ``GRAD_EPS``)."""
+    total = 0.0
+    for t, lr in enumerate(lrs, start=1):
+        c1, c2 = 1 - b1**t, 1 - b2**t
+        ratio = sum(((1 - b1) * b1**j) ** 2 / ((1 - b2) * b2**j) for j in range(t))
+        total += lr * 2 * rel / (1 - rel) * math.sqrt(c2) / c1 * math.sqrt(ratio)
+    return total
+
+
+def make_npz(task: str, out_dir: Path) -> Path:
+    """A capability config's data file, written by ``experiments/make_npz.py``."""
+    path = out_dir / f"data_{task}.npz"
+    subprocess.run([sys.executable, str(HERE / "experiments" / "make_npz.py"), "--task", task, "--out", str(path)],
+                   check=True, capture_output=True, text=True, timeout=120)
+    return path
+
+
+def multi_step_phase(fa) -> dict:
+    """gpt2_small at full width, batch 8: ``MULTI_STEPS`` single steps, then
+    the same from the same init on the same batches at ``steps_per_call``
+    ``MULTI_SPC``, each as two runs of half the steps (samples/s of the
+    second). Losses and every param leaf against the single steps
+    (``PARITY_TOL["multi"]``, bit-equality reported), K1-K3 24 / 12 / 12 a
+    step in each. Then eval on the chunked run's
+    params: ``evaluate`` of ``EVAL_BATCHES`` held-out batches launches K1
+    12 times a batch under no_grad and nothing else, and one batch's eval
+    loss through the kernels agrees with the plain core's."""
+    from distributedvolunteercomputing_tpu_torch.models import get_model
+    from distributedvolunteercomputing_tpu_torch.ops.attention import set_attention_impl
+    from distributedvolunteercomputing_tpu_torch.training.steps import make_eval_step
+    from distributedvolunteercomputing_tpu_torch.training.trainer import Trainer
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_leaves
+
+    bundle = get_model("gpt2_small")
+    gen = torch.Generator().manual_seed(11)
+    batches = [bundle.make_batch(gen, 8) for _ in range(MULTI_STEPS)]
+    out_dir = HERE / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs, p0, trainer, names = {}, None, None, None
+    failures = []
+    for spc in (1, MULTI_SPC):
+        path = out_dir / f"multi_step_spc{spc}.jsonl"
+        path.unlink(missing_ok=True)
+        trainer = None
+        release_card_memory()
+        trainer = Trainer(bundle, batch_size=8, steps_per_call=spc, total_steps=MULTI_STEPS,
+                          data=iter(batches), metrics_path=str(path))
+        leaves = tree_leaves(trainer.state.params)
+        if p0 is None:
+            p0 = [x.detach().clone() for x in leaves]
+            names = leaf_names(trainer.state.params)
+        elif not all(torch.equal(a, b) for a, b in zip(leaves, p0)):
+            failures.append("the two runs did not start from the same init")
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        # The first half warms the process up; samples/s is the second's.
+        trainer.run(steps=MULTI_STEPS // 2, log_every=0)
+        torch.cuda.synchronize()
+        summary = trainer.run(steps=MULTI_STEPS - MULTI_STEPS // 2, log_every=0)
+        torch.cuda.synchronize()
+        recs = [json.loads(line) for line in path.read_text().splitlines()]
+        runs[spc] = {"summary": summary, "launches": dict(fa.LAUNCHES),
+                     "losses": [r["loss"] for r in recs if "loss" in r],
+                     "params": [x.detach().clone() for x in tree_leaves(trainer.state.params)]}
+    single, multi = runs[1], runs[MULTI_SPC]
+    expect = {"flash_fwd": 24 * MULTI_STEPS, "flash_dq": 12 * MULTI_STEPS, "flash_dkv": 12 * MULTI_STEPS}
+    tol = PARITY_TOL["multi"]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(multi["losses"], single["losses"]))
+    leaves = {}
+    for name, a, b, init in zip(names, multi["params"], single["params"], p0):
+        upd = (b.float() - init.float()).norm().item()
+        leaves[name] = {"bit_equal": bool(torch.equal(a, b)), "max_abs_diff": (a.float() - b.float()).abs().max().item(),
+                        "update_l2": (a.float() - b.float()).norm().item() / max(upd, 1e-30)}
+    row = {
+        "phase": "multi_step", "model": "gpt2_small", "batch_size": 8, "steps": MULTI_STEPS, "steps_per_call": MULTI_SPC,
+        "samples_per_sec": {"single": single["summary"]["samples_per_sec"], "chunked": multi["summary"]["samples_per_sec"]},
+        "wall_s": {"single": single["summary"]["wall_time_s"], "chunked": multi["summary"]["wall_time_s"]},
+        "losses": {"single": single["losses"], "chunked": multi["losses"]}, "loss_max_rel": loss_rel,
+        "losses_bit_equal": multi["losses"] == single["losses"],
+        "params_bit_equal": all(v["bit_equal"] for v in leaves.values()),
+        "worst_leaf_update_l2": max(v["update_l2"] for v in leaves.values()),
+        "leaves_not_bit_equal": {k: v for k, v in leaves.items() if not v["bit_equal"]},
+        "launches": {"single": single["launches"], "chunked": multi["launches"]}, "launches_expected": expect,
+        "tol": tol,
+    }
+    if len(multi["losses"]) != MULTI_STEPS or len(single["losses"]) != MULTI_STEPS \
+            or not all(math.isfinite(x) for x in multi["losses"] + single["losses"]):
+        failures.append("missing or non-finite losses")
+    if loss_rel > tol["loss"] or row["worst_leaf_update_l2"] > tol["update_l2"]:
+        failures.append(f"chunked run outside PARITY_TOL['multi']: loss {loss_rel}, update {row['worst_leaf_update_l2']}")
+    if single["launches"] != expect or multi["launches"] != expect:
+        failures.append(f"K1-K3 launches {single['launches']} / {multi['launches']} != {expect}")
+    del runs, p0, single, multi
+    # Eval: the held-out synthetic stream through evaluate() (the run's
+    # finite stream is spent: without data, eval draws its own generator's
+    # batches), then one batch through the kernels and the plain core.
+    trainer._data = None
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev = trainer.evaluate(EVAL_BATCHES)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = dict(fa.LAUNCHES)
+    eval_expect = {"flash_fwd": 12 * EVAL_BATCHES, "flash_dq": 0, "flash_dkv": 0}
+    eval_fn = make_eval_step(bundle.loss_fn)
+    batch = {k: v.to("cuda") for k, v in bundle.make_batch(torch.Generator().manual_seed(12), 8).items()}
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    loss_k = float(eval_fn(trainer.state.params, batch, rng)["loss"])
+    set_attention_impl("xla")
+    try:
+        loss_p = float(eval_fn(trainer.state.params, batch, rng)["loss"])
+    finally:
+        set_attention_impl("auto")
+    row["eval"] = {"eval_loss": ev, "batches": EVAL_BATCHES, "s": eval_s, "launches": eval_launches,
+                   "launches_expected": eval_expect, "loss_kernels": loss_k, "loss_plain": loss_p,
+                   "loss_rel": abs(loss_k - loss_p) / abs(loss_p), "tol": PARITY_TOL["eval"]}
+    emit(row)
+    if not math.isfinite(ev) or eval_launches != eval_expect:
+        failures.append(f"eval: loss {ev}, launches {eval_launches} != {eval_expect}")
+    if row["eval"]["loss_rel"] > PARITY_TOL["eval"]["loss"]:
+        failures.append(f"eval loss through the kernels {loss_k} vs the plain core {loss_p}")
+    del trainer
+    release_card_memory()
+    if failures:
+        raise AssertionError(f"multi_step phase: {failures}")
+    return {"multi_step": expect, "eval": eval_launches}
+
+
+class GradHooks:
+    """grad_averaging's own checks: after the last step, the two volunteers'
+    params agree within ``adam_drift_bound`` of the steps' learning rates
+    (every round committed on both), leaf by leaf on the card."""
+
+    def setup(self, vols, recs) -> None:
+        self.lrs = [vols[0].trainer.tx.schedule(c) for c in range(GRAD_STEPS)]
+        # The weight each volunteer puts on its contribution, as the
+        # averager receives it.
+        self.weights = []
+        for vol in vols:
+            inner = vol.averager.average
+
+            async def average(tree, round_no, weight, inner=inner):
+                self.weights.append(weight)
+                return await inner(tree, round_no=round_no, weight=weight)
+
+            vol.averager.average = average
+
+    def finish(self, vols, recs, failures) -> dict:
+        from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_leaves
+
+        tx = vols[0].trainer.tx
+        bound = adam_drift_bound(self.lrs, tx.b1, tx.b2, GRAD_EPS)
+        worst = {"excess": -math.inf}
+        for name, a, b in zip(leaf_names(vols[0].trainer.state.params), tree_leaves(vols[0].trainer.state.params),
+                              tree_leaves(vols[1].trainer.state.params)):
+            diff = (a.float() - b.float()).abs().max().item()
+            limit = bound + 2 * GRAD_STEPS * 2.0**-24 * max(a.float().abs().max().item(), b.float().abs().max().item())
+            if diff - limit > worst["excess"]:
+                worst = {"leaf": name, "max_abs_diff": diff, "limit": limit, "excess": diff - limit}
+        committed = [r.committed() for r in recs]
+        out = {"param_agreement": {"bound": bound, "lrs": self.lrs, "grad_eps": GRAD_EPS, "worst": worst,
+                                   "committed": committed}}
+        if committed != [GRAD_STEPS, GRAD_STEPS]:
+            failures.append(f"gradient rounds committed {committed}, want {GRAD_STEPS} on each (param bound)")
+        elif worst["excess"] > 0:
+            failures.append(f"volunteers' params differ beyond the bound: {worst}")
+        weights = sorted(set(self.weights))
+        out["weights"] = weights
+        if weights != [8.0]:
+            failures.append(f"gradient contributions weighed {weights}, want one batch (8)")
+        return out
+
+
+class OuterHooks:
+    """outer_sync's own checks. Each committed round's result (the plain
+    average the volunteer's callback returned) is kept, and after the merge
+    (``on_step`` of that step) a copy of the live params is taken on the
+    card, which is all the trainer thread pays. After training, a Nesterov
+    recurrence in numpy on flat buffers replays the results: round 1's
+    expected params are the average itself, later rounds' a' = a - lr (mu m
+    + g), g = a - v, m = mu m + g; every copy must be bit-equal to it. Then
+    volunteer 0's checkpoint (with its ``.outer.npz`` sidecar) is saved, its
+    outer state cleared and restored: anchor and momentum bit-equal, and
+    equal to the recurrence's."""
+
+    def setup(self, vols, recs) -> None:
+        from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_leaves
+
+        self.rounds = [[], []]  # per volunteer: [step, result tree, params on the card]
+        for i, (vol, rec) in enumerate(zip(vols, recs)):
+            prev_after, pending = rec.after, {}
+
+            def after(call, result, prev_after=prev_after, pending=pending):
+                prev_after(call, result)
+                if result is not None:
+                    pending[call["step"]] = result
+
+            def on_step(trainer, step_no, i=i, pending=pending, inner=vol.trainer.on_step):
+                result = pending.pop(step_no, None)
+                if result is not None:
+                    live = tree_leaves(trainer.bundle.avg_select(trainer.state.params))
+                    self.rounds[i].append([step_no, result, torch.cat([p.detach().reshape(-1).float() for p in live])])
+                if inner is not None:
+                    inner(trainer, step_no)
+
+            rec.after = after
+            vol.trainer.on_step = on_step
+
+    def finish(self, vols, recs, failures) -> dict:
+        import shutil
+
+        import numpy as np
+
+        from distributedvolunteercomputing_tpu_torch.training import checkpoint
+        from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer
+
+        lr, mu = OUTER["outer_lr"], OUTER["outer_momentum"]
+        checks, final = [[], []], [None, None]
+        for i, rounds in enumerate(self.rounds):
+            a = m = None
+            for step_no, result, live in rounds:
+                v = flatten_to_buffer(result)[0]
+                if a is None:
+                    a, m, want = v.copy(), np.zeros_like(v), v
+                else:
+                    g = a - v
+                    m = mu * m + g
+                    a = a - lr * (mu * m + g)
+                    want = a
+                got = live.cpu().numpy()
+                checks[i].append({"step": step_no, "round": len(checks[i]) + 1,
+                                  "bit_equal": bool(np.array_equal(got.view(np.uint32), want.view(np.uint32))),
+                                  "max_abs_diff": float(np.abs(got - want).max())})
+            final[i] = (a, m)
+        self.rounds = None
+        out = {"merged_vs_host_nesterov": checks}
+        for i, c in enumerate(checks):
+            if len(c) < OUTER_COMMITS or not all(r["bit_equal"] for r in c):
+                failures.append(f"volunteer {i}: merged params vs the host Nesterov step {c}")
+        trainer = vols[0].trainer
+        ckpt_dir = HERE / "build" / "chip_smoke" / "outer_ckpt"
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        try:
+            anchor = flatten_to_buffer(trainer._outer_anchor)[0]
+            m = flatten_to_buffer(trainer._outer_m)[0]
+            t0 = time.perf_counter()
+            path = checkpoint.save(trainer, str(ckpt_dir))
+            save_s = time.perf_counter() - t0
+            trainer._outer_anchor = trainer._outer_m = None
+            t0 = time.perf_counter()
+            restored = checkpoint.maybe_restore(trainer, str(ckpt_dir))
+            restore_s = time.perf_counter() - t0
+            got_a = flatten_to_buffer(trainer._outer_anchor)[0] if trainer._outer_anchor is not None else None
+            got_m = flatten_to_buffer(trainer._outer_m)[0] if trainer._outer_m is not None else None
+            with np.load(path + ".outer.npz") as d:
+                files = sorted(d.files)
+            want_a, want_m = final[0]
+            out["sidecar"] = {
+                "files": files, "restored": restored, "save_s": save_s, "restore_s": restore_s,
+                "anchor_bit_equal": got_a is not None and bool(np.array_equal(got_a.view(np.uint32), anchor.view(np.uint32))),
+                "m_bit_equal": got_m is not None and bool(np.array_equal(got_m.view(np.uint32), m.view(np.uint32))),
+                "anchor_is_recurrence": want_a is not None and bool(np.array_equal(anchor.view(np.uint32),
+                                                                                   want_a.view(np.uint32))),
+                "m_is_recurrence": want_m is not None and bool(np.array_equal(m.view(np.uint32), want_m.view(np.uint32))),
+            }
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        sc = out["sidecar"]
+        if not (sc["restored"] and sc["files"] == ["anchor", "m"] and sc["anchor_bit_equal"] and sc["m_bit_equal"]
+                and sc["anchor_is_recurrence"] and sc["m_is_recurrence"]):
+            failures.append(f"outer sidecar round trip: {sc}")
+        return out
+
+
+def grad_averaging_phase() -> dict:
+    """Two gpt2_small volunteers in gradient mode: a sync round on the bf16
+    wire every step for ``GRAD_STEPS`` steps (phase 6's checks on every
+    round, K1-K3 per step, ``GradHooks``)."""
+    return averaging_phase(phase="grad_averaging", every=1, extra={"average_what": "grads"}, commits=None,
+                           max_steps=GRAD_STEPS, keep=GRAD_STEPS, hooks=GradHooks(), all_rounds=True,
+                           check_flash=True)
+
+
+def outer_sync_phase() -> dict:
+    """Two gpt2_small volunteers in sync rounds every ``AVG_EVERY`` steps with
+    the outer Nesterov step (``OUTER``), until ``OUTER_COMMITS`` rounds have
+    committed on each (phase 6's checks, ``OuterHooks``)."""
+    return averaging_phase(phase="outer_sync", extra=dict(OUTER), commits=OUTER_COMMITS, hooks=OuterHooks(),
+                           check_flash=True)
+
+
+def mnist_file_phase(out_dir: Path) -> dict:
+    """Capability config 6: ``run_volunteer_torch.py`` on mnist_mlp with
+    ``--data`` (a file from ``experiments/make_npz.py``) and a held-out eval
+    stream (``MNIST_FILE_ARGV``): exit 0, the target 0.15 crossed, an
+    ``eval`` event with a finite loss at every multiple of 50 reached."""
+    data = make_npz("mnist", out_dir)
+    metrics = out_dir / "mnist_file_volunteer.jsonl"
+    metrics.unlink(missing_ok=True)
+    argv = [*MNIST_FILE_ARGV, "--data", str(data), "--metrics", str(metrics)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(HERE / "run_volunteer_torch.py"), *argv], cwd=str(HERE),
+                          capture_output=True, text=True, timeout=300)
+    wall_s = time.perf_counter() - t0
+    done = [ln for ln in proc.stdout.splitlines() if ln.startswith("VOLUNTEER_DONE ")]
+    summary = json.loads(done[-1].split(" ", 1)[1]) if done else {}
+    events = read_jsonl(metrics) if metrics.exists() else []
+    evals = [(e["step"], e["eval_loss"]) for e in events if e.get("event") == "eval"]
+    steps = summary.get("steps") or 0
+    want_steps = list(range(50, steps + 1, 50))
+    row = {"phase": "mnist_file", "argv": MNIST_FILE_ARGV, "rc": proc.returncode, "wall_s": wall_s,
+           "data": {"file": data.name, "bytes": data.stat().st_size}, "evals": evals,
+           **{k: summary.get(k) for k in ("steps", "final_loss", "target_crossed_step", "target_crossed_s",
+                                          "samples_per_sec", "wall_time_s")}}
+    emit(row)
+    if proc.returncode != 0 or row["target_crossed_step"] is None:
+        raise AssertionError(f"mnist_file phase: rc {proc.returncode}, summary {summary}: {proc.stderr[-3000:]}")
+    if [s for s, _ in evals] != want_steps or not want_steps or not all(math.isfinite(x) for _, x in evals):
+        raise AssertionError(f"mnist_file phase: eval events {evals}, want one at each of {want_steps}")
+    return row
+
+
+def resnet_file_phase(out_dir: Path) -> dict:
+    """Capability config 7: phase 16 (config 2) with both volunteers reading
+    ``--data`` (a cifar10 file from ``experiments/make_npz.py``), each in its
+    own per-peer order."""
+    data = make_npz("cifar10", out_dir)
+    return averaging_phase(phase="resnet_file", **RESNET, extra={"data_path": str(data)})
 
 
 # ---------------------------------------------------------------------------
@@ -3039,8 +3489,11 @@ def main() -> int:
     model_attention = model_kernels_phase(fa, peak)
 
     launches = trainer_phase(fa)
+    modes = multi_step_phase(fa)
     codec = codec_phase(peak)
     launches.update(averaging_phase())
+    modes["grad_averaging"] = grad_averaging_phase()
+    modes["outer_sync"] = outer_sync_phase()
     ring = ring_kernels_phase(peak)
     dp_parity_phase()
     devices, _ = ring_ranks(2)
@@ -3049,18 +3502,30 @@ def main() -> int:
     life_launches = lifecycle_phase()
     protocols = {"gossip": gossip_phase(), "butterfly": butterfly_phase(), "byzantine": byzantine_phase()}
     mnist_phase()
-    models = {
-        "vit": vit_phase(),
-        "resnet_sync": averaging_phase(phase="resnet_sync", **RESNET),
-        "bert_gossip": gossip_phase(phase="bert_gossip", **BERT),
-        "llama_byzantine": byzantine_phase(phase="llama_byzantine", overrides=llama2_7b(), **LLAMA),
-    }
+    data_dir = HERE / "build" / "chip_smoke" / "data"
+    data_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        mnist_file_phase(data_dir)
+        models = {
+            "vit": vit_phase(),
+            "resnet_sync": averaging_phase(phase="resnet_sync", **RESNET),
+            "bert_gossip": gossip_phase(phase="bert_gossip", **BERT),
+            "llama_byzantine": byzantine_phase(phase="llama_byzantine", overrides=llama2_7b(), **LLAMA),
+        }
+        modes["resnet_file"] = resnet_file_phase(data_dir)
+    finally:
+        import shutil
+
+        shutil.rmtree(data_dir, ignore_errors=True)
 
     def protocol_launches(kname):
         return {phase: counts[kname] for phase, counts in protocols.items()}
 
     def model_launches(kname):
         return {phase: counts.get(kname, 0) for phase, counts in models.items()}
+
+    def mode_launches(kname):
+        return {phase: counts.get(kname, 0) for phase, counts in modes.items()}
 
     def model_shapes(kname):
         """K1-K3 at each model's main-path shape: error, device ms, plain,
@@ -3082,7 +3547,7 @@ def main() -> int:
             "name": kname, "id": kid, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[kname], "launches_lifecycle": life_launches[kname],
             "launches_protocols": protocol_launches(kname), "launches_models": model_launches(kname),
-            "shapes_models": model_shapes(kname), "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
+            "launches_trainer_modes": mode_launches(kname), "shapes_models": model_shapes(kname), "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
             "ms_method": DEVICE_MS_METHOD, "ms_qkv_view": times["qkv"][kname]["ms"],
             "plain_ms": t[kname]["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": t[lib]["ms"], "library_ms_qkv_view": times["qkv"][lib]["ms"],
@@ -3094,7 +3559,7 @@ def main() -> int:
         "name": "bf16_encode", "id": "K4", "route": "cuda", "source": CODEC_SOURCE,
         "replaces": CODEC_KERNELS["bf16_encode"][0], "launches": launches["bf16_encode"],
         "launches_lifecycle": life_launches["bf16_encode"], "launches_protocols": protocol_launches("bf16_encode"),
-        "launches_models": model_launches("bf16_encode"),
+        "launches_models": model_launches("bf16_encode"), "launches_trainer_modes": mode_launches("bf16_encode"),
         "max_abs_err": codec["encode_max_abs_err"], "n": k4["n"], "ms": k4["ms"], "ms_method": k4["ms_method"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"], "library_call": k4["library_call"],
@@ -3103,6 +3568,7 @@ def main() -> int:
         "name": "bf16_fold_chunks", "id": "K5", "route": "cuda", "source": CODEC_SOURCE,
         "replaces": CODEC_KERNELS["bf16_fold_chunks"][0], "launches": launches["bf16_fold_chunks"],
         "launches_lifecycle": life_launches["bf16_fold_chunks"], "launches_models": model_launches("bf16_fold_chunks"),
+        "launches_trainer_modes": mode_launches("bf16_fold_chunks"),
         "max_abs_err": max(k5["max_abs_err"], codec["fold_max_abs_err"]),
         "per": f"staged flush of {k5['chunks']} chunks of 1 MiB ({k5['distinct_tiles']} tiles)",
         "ms": k5["device_ms"], "ms_method": "profiler device time of bf16_fold_kernel per flush",
@@ -3119,6 +3585,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "id": kid, "route": "cuda", "source": RING_SOURCE, "replaces": replaces,
             "launches": launches[kname], "launches_models": model_launches(kname),
+            "launches_trainer_modes": mode_launches(kname),
             "max_abs_err": max(c["max_abs_err"] for rows in checks for c in rows),
             "nd": 2, "cross_card": flag["cross_card"],
             "design": "stepwise, across cards" if flag["cross_card"] else "one launch, every rank on one card",

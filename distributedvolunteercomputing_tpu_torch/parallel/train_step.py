@@ -13,6 +13,11 @@ the same averaged gradients, which leaves the replicas identical. The
 reduction is plain torch, as the reference's is XLA's: no Pallas kernel
 stands behind it.
 
+Gradient-averaging mode splits that step (``make_sharded_grad_step``: the
+ranks' mean gradients on rank 0, which the volunteer's round then averages
+with the swarm's; ``make_sharded_apply_step``: every replica applies the
+result), and ``make_sharded_multi_step`` runs several fused steps in one call.
+
 Ranks may share a card (``parallel/mesh.py``); their steps then run one
 after the other on it. ``fsdp``, ``zero1``, a sequence-sharded batch and any
 ``sp``/``tp``/``pp``/``ep`` axis above 1 raise "not ported yet".
@@ -20,7 +25,7 @@ after the other on it. ``fsdp``, ``zero1``, a sequence-sharded batch and any
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -34,6 +39,7 @@ from distributedvolunteercomputing_tpu_torch.training.steps import (
     apply_half,
     grad_half,
 )
+from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
 
 
 def dp_ranks(mesh: Mesh) -> List[torch.device]:
@@ -132,6 +138,16 @@ def dp_grad_half(
     return grads, metrics
 
 
+def _apply_all(tx: Optimizer, state: DPTrainState, grads: List[Optional[torch.Tensor]], ranks) -> None:
+    """Every replica applies the same update to the same gradients (rank
+    0's tensors copied to each other rank), in place."""
+    if len(state.replicas) != len(ranks):
+        raise ValueError(f"{len(state.replicas)} replicas for a mesh of dp={len(ranks)}")
+    shares = [grads if dev == ranks[0] else [None if g is None else g.to(dev) for g in grads] for dev in ranks]
+    for st, g in zip(state.replicas, shares):
+        apply_half(tx, st, g)
+
+
 def make_sharded_train_step(
     loss_fn: LossFn,
     tx: Optimizer,
@@ -148,12 +164,65 @@ def make_sharded_train_step(
     ranks = dp_ranks(mesh)
 
     def step(state: DPTrainState, batches: List[Batch]) -> Tuple[DPTrainState, Metrics]:
-        if len(state.replicas) != len(ranks):
-            raise ValueError(f"{len(state.replicas)} replicas for a mesh of dp={len(ranks)}")
         grads, metrics = dp_grad_half(loss_fn, state, batches, accum_steps)
-        shares = [grads if dev == ranks[0] else [None if g is None else g.to(dev) for g in grads] for dev in ranks]
-        for st, g in zip(state.replicas, shares):
-            apply_half(tx, st, g)
+        _apply_all(tx, state, grads, ranks)
         return state, metrics
 
     return step
+
+
+def make_sharded_multi_step(
+    loss_fn: LossFn,
+    tx: Optimizer,
+    mesh: Mesh,
+    seq_sharded_batch: bool = False,
+    accum_steps: int = 1,
+    zero1: bool = False,
+    fsdp: bool = False,
+) -> Callable[[DPTrainState, Batch], Tuple[DPTrainState, torch.Tensor]]:
+    """N steps of ``make_sharded_train_step`` in one call: ``(state,
+    stacked_batches) -> (state, per_step_losses)``, the leading axis of every
+    host batch leaf the step index; each step's batch is split over the
+    ranks as ``put_batch`` splits it. The losses stay on rank 0's device."""
+    step = make_sharded_train_step(
+        loss_fn, tx, mesh, seq_sharded_batch=seq_sharded_batch, accum_steps=accum_steps, zero1=zero1, fsdp=fsdp,
+    )
+
+    def multi(state: DPTrainState, batches: Batch) -> Tuple[DPTrainState, torch.Tensor]:
+        n = next(iter(batches.values())).shape[0]
+        losses = []
+        for i in range(n):
+            state, metrics = step(state, put_batch({k: v[i] for k, v in batches.items()}, mesh))
+            losses.append(metrics["loss"])
+        return state, torch.stack(losses)
+
+    return multi
+
+
+def make_sharded_grad_step(
+    loss_fn: LossFn, mesh: Mesh, accum_steps: int = 1
+) -> Callable[[DPTrainState, List[Batch]], Tuple[Any, Metrics, torch.Generator]]:
+    """Gradient-averaging mode on the mesh, half 1: ``(state, batches) ->
+    (grads, metrics, rng)``, the ranks' mean gradients on rank 0 as a tree
+    shaped like the params (None at a leaf the loss does not reach), and
+    rank 0's step generator."""
+    dp_ranks(mesh)
+
+    def grad_step(state: DPTrainState, batches: List[Batch]) -> Tuple[Any, Metrics, torch.Generator]:
+        grads, metrics = dp_grad_half(loss_fn, state, batches, accum_steps)
+        return tree_unflatten(tree_flatten(state.params)[1], grads), metrics, state.replicas[0].rng
+
+    return grad_step
+
+
+def make_sharded_apply_step(tx: Optimizer, mesh: Mesh) -> Callable[[DPTrainState, Any, torch.Generator], DPTrainState]:
+    """Gradient-averaging mode on the mesh, half 2: every replica applies the
+    (possibly swarm-averaged) gradients, a tree shaped like the params, in
+    place. Each replica keeps its own step generator; ``rng`` is rank 0's."""
+    ranks = dp_ranks(mesh)
+
+    def apply_step(state: DPTrainState, grads: Any, rng: torch.Generator) -> DPTrainState:
+        _apply_all(tx, state, tree_flatten(grads)[0], ranks)
+        return state
+
+    return apply_step

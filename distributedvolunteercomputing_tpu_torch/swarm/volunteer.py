@@ -25,18 +25,21 @@ announce (and, in gossip, the first publish), the watchdog's probes, and
 the report loop.
 
 Ported so far: every averaging mode (sync, gossip, butterfly, byzantine)
-on the f32 or bf16 wire, the step and wall-clock cadences, blocking or
-overlapped rounds, the robust estimators, the resilience layer and
-controller, a local data-parallel mesh, the coordinator and control plane,
-checkpoints, state sync and the reference's fault-injection hooks (read
-from the environment, test-only): ``DVC_CHAOS_CONTRIB_SCALE=<x>``
-contributes the real tree scaled by x; ``DVC_STEP_DELAY_MS=<ms>`` sleeps
-that long after each step; ``DVC_CHAOS_STATE_POISON=<lie>,<scale>`` serves
-state sync at step + lie with the tree scaled; ``DVC_CLOCK_SKEW_S=<s>``
-skews the local clock under the wall-clock cadence. Gradient averaging,
-the other wires, group schedules and sharding come with later slices;
-``VolunteerConfig`` raises ``NotImplementedError`` when one of them is set
-away from its default.
+on the f32 or bf16 wire, of params or (``average_what="grads"``) of every
+step's gradients, the step and wall-clock cadences, blocking or overlapped
+rounds, the outer Nesterov optimizer over params rounds, multi-step calls,
+``.npz`` data with a held-out eval stream, the robust estimators, the
+resilience layer and controller, a local data-parallel mesh, the
+coordinator and control plane, checkpoints, state sync and the reference's
+fault-injection hooks (read from the environment, test-only):
+``DVC_CHAOS_CONTRIB_SCALE=<x>`` contributes the real tree scaled by x;
+``DVC_STEP_DELAY_MS=<ms>`` sleeps that long after each step;
+``DVC_CHAOS_STATE_POISON=<lie>,<scale>`` serves state sync at step + lie
+with the tree scaled; ``DVC_CLOCK_SKEW_S=<s>`` skews the local clock under
+the wall-clock cadence. The other wires, group schedules, zones, sharding,
+FSDP and sequence parallelism come with later slices; ``VolunteerConfig``
+raises ``NotImplementedError`` when one of them is set away from its
+default.
 """
 
 from __future__ import annotations
@@ -69,8 +72,9 @@ from distributedvolunteercomputing_tpu_torch.utils.torchenv import DeviceLike
 log = get_logger(__name__)
 
 PORTED = (
-    "averaging none|sync|gossip|butterfly|byzantine, wire f32|bf16, the step and "
-    "wall-clock cadences, overlap, robust methods, the resilience layer and controller, "
+    "averaging none|sync|gossip|butterfly|byzantine, wire f32|bf16, average_what "
+    "params|grads, the step and wall-clock cadences, overlap, steps_per_call, the outer "
+    "optimizer, .npz data, eval, robust methods, the resilience layer and controller, "
     "a dp mesh, the coordinator and control plane, checkpoints, state sync, telemetry, "
     "health probe and watchdog"
 )
@@ -81,7 +85,6 @@ DEFAULT_BUTTERFLY_INTERVAL_S = 20.0
 # The reference's options that later slices carry: field -> (default, what).
 # Set away from its default, each raises NotImplementedError.
 LATER_SLICES: Dict[str, tuple] = {
-    "average_what": ("params", "gradient averaging"),
     "topk_frac": (0.01, "the topk wire"),
     "topk_warmup_rounds": (0, "the topk wire"),
     "powersgd_rank": (4, "the powersgd wire"),
@@ -91,13 +94,6 @@ LATER_SLICES: Dict[str, tuple] = {
     "zone": ("", "zones"),
     "cross_zone_every_k": (0, "zones"),
     "zone_shards": (0, "zone sharding"),
-    "steps_per_call": (1, "multi-step calls"),
-    "data_path": (None, ".npz data"),
-    "eval_every": (0, "evaluation"),
-    "eval_batches": (4, "evaluation"),
-    "outer_optimizer": ("none", "the outer optimizer"),
-    "outer_lr": (0.7, "the outer optimizer"),
-    "outer_momentum": (0.9, "the outer optimizer"),
     "fsdp": (False, "fsdp"),
     "seq_sharded": (False, "sequence parallelism"),
     "sp_impl": ("ring", "sequence parallelism"),
@@ -124,7 +120,7 @@ class VolunteerConfig:
     # fire when the consensus clock crosses a multiple of it. None = AUTO:
     # DEFAULT_BUTTERFLY_INTERVAL_S for butterfly params mode, else 0.
     average_interval_s: Optional[float] = None
-    average_what: str = "params"
+    average_what: str = "params"  # params (local SGD) | grads (GradientAverager)
     # Overlap rounds with local steps (the reference's default, on).
     overlap: bool = True
     max_staleness: int = 0  # steps; 0 = unbounded
@@ -142,7 +138,7 @@ class VolunteerConfig:
     batch_size: int = 32
     steps_per_call: int = 1
     accum_steps: int = 1  # gradient-accumulation microbatches inside the step
-    data_path: Optional[str] = None
+    data_path: Optional[str] = None  # .npz of aligned arrays; None = synthetic
     optimizer: str = "adam"
     lr: float = 1e-3
     seed: int = 0  # per-volunteer: data order + step rng
@@ -151,7 +147,7 @@ class VolunteerConfig:
     steps: int = 1000
     target_loss: Optional[float] = None
     target_mode: str = "stop"  # stop | record
-    eval_every: int = 0
+    eval_every: int = 0  # 0 = no held-out evaluation
     eval_batches: int = 4
     metrics_path: Optional[str] = None
     checkpoint_dir: Optional[str] = None
@@ -174,7 +170,8 @@ class VolunteerConfig:
     # Static wall-clock budget per averaging round, seconds (0 = the gather
     # timeout): the leader stamps clock()+budget into the round begin.
     round_deadline_s: float = 0.0
-    outer_optimizer: str = "none"
+    # DiLoCo-style outer optimizer over params-mode rounds (see Trainer).
+    outer_optimizer: str = "none"  # none | nesterov
     outer_lr: float = 0.7
     outer_momentum: float = 0.9
     # Local mesh: the reference's "dp=N" spec over the first N visible cards
@@ -228,8 +225,14 @@ class VolunteerConfig:
             )
         if self.average_interval_s < 0:
             raise ValueError(f"average_interval_s must be >= 0, got {self.average_interval_s}")
-        if self.average_interval_s > 0 and self.averaging == "none":
-            raise ValueError("--average-interval-s requires an averaging mode")
+        if self.average_interval_s > 0:
+            if self.average_what != "params":
+                raise ValueError(
+                    "--average-interval-s requires --average-what params "
+                    "(gradient rounds are per-step by definition)"
+                )
+            if self.averaging == "none":
+                raise ValueError("--average-interval-s requires an averaging mode")
         if self.phi_threshold <= 0:
             raise ValueError(f"phi_threshold must be > 0, got {self.phi_threshold}")
         for name, (default, what) in LATER_SLICES.items():
@@ -266,6 +269,20 @@ class VolunteerConfig:
                 raise ValueError(
                     f"--method-kw keys {sorted(unknown)} are not accepted by method {self.method!r} "
                     f"(accepts: {sorted(allowed)})"
+                )
+        if self.outer_optimizer != "none":
+            if self.average_what != "params":
+                raise ValueError("--outer-optimizer requires --average-what params")
+            if self.averaging not in ("sync", "byzantine"):
+                # The outer step assumes every member adopts one common
+                # aggregate per round; gossip and butterfly results are
+                # pairwise or subset averages, and momentum over them
+                # amplifies the disagreement.
+                raise ValueError(
+                    "--outer-optimizer requires --averaging sync or byzantine "
+                    "(gossip/butterfly rounds are pairwise/subset averages, "
+                    "not a common aggregate — momentum over them amplifies "
+                    "disagreement)"
                 )
 
 
@@ -335,11 +352,15 @@ class Volunteer:
         chaos_scale = float(os.environ.get("DVC_CHAOS_CONTRIB_SCALE", "0") or 0.0)
         if chaos_scale:
             params = tree_map(lambda x: np.asarray(x, np.float32) * chaos_scale, params)
-        # Weight = samples behind this contribution: the trainer's actual
-        # steps since the last merge (average_every on the happy step-cadence
-        # path, more after failed rounds, the window's progress under the
-        # wall-clock cadence).
-        per_round = max(1, getattr(self.trainer, "steps_since_merge", self.cfg.average_every))
+        # Weight = samples behind this contribution: one batch for a
+        # gradient round; for a params round the trainer's actual steps since
+        # the last merge (average_every on the happy step-cadence path, more
+        # after failed rounds, the window's progress under the wall-clock
+        # cadence).
+        if self.cfg.average_what == "grads":
+            per_round = 1
+        else:
+            per_round = max(1, getattr(self.trainer, "steps_since_merge", self.cfg.average_every))
         samples_since = self.cfg.batch_size * per_round
         fut = asyncio.run_coroutine_threadsafe(
             self.averager.average(params, round_no=step, weight=float(samples_since)),
@@ -456,6 +477,20 @@ class Volunteer:
                 if _prev is not None:
                     _prev(trainer, step_no)
 
+        data = eval_data = None
+        if cfg.data_path:
+            import zlib
+
+            from distributedvolunteercomputing_tpu_torch.training.data import npz_batch_iter
+
+            # Seeded per peer, so volunteers see the whole file in different
+            # orders; crc32, not hash(), so the order survives a restart.
+            data_seed = zlib.crc32(cfg.peer_id.encode()) & 0x7FFFFFFF
+            data = npz_batch_iter(cfg.data_path, cfg.batch_size, seed=data_seed)
+            if cfg.eval_every:
+                # An independent shuffle of the same file: eval never
+                # perturbs the training order.
+                eval_data = npz_batch_iter(cfg.data_path, cfg.batch_size, seed=data_seed ^ 0x5EED)
         mesh = cfg.mesh if isinstance(cfg.mesh, Mesh) else make_mesh(**parse_mesh_spec(cfg.mesh)) if cfg.mesh else None
         # The averager resolves the process default lazily, so configuring
         # here covers the averager built above.
@@ -483,13 +518,30 @@ class Volunteer:
             volunteer_id=cfg.peer_id,
             device=cfg.device,
             mesh=mesh,
+            data=data,
             averager=self._averager_callback if self.averager is not None else None,
+            average_what=cfg.average_what,
             average_every=cfg.average_every,
             average_interval_s=cfg.average_interval_s,
             wall_clock=self.clocksync.now if self.clocksync is not None else None,
+            steps_per_call=cfg.steps_per_call,
+            # The checkpoint cadence lives inside on_step, where chunk sizing
+            # cannot see it: declare it so chunks end there. The step-delay
+            # hook sleeps inside on_step too: a cadence of 1 keeps it per
+            # step (and visible to the wall-clock cadence's step-time EMA).
+            chunk_cadences=(
+                ((cfg.checkpoint_every,) if cfg.checkpoint_dir and cfg.checkpoint_every > 0 else ())
+                + ((1,) if delay_ms > 0 else ())
+            ),
             overlap=cfg.overlap,
             max_staleness=cfg.max_staleness,
             on_step=on_step,
+            eval_every=cfg.eval_every,
+            eval_batches=cfg.eval_batches,
+            eval_data=eval_data,
+            outer_optimizer=cfg.outer_optimizer,
+            outer_lr=cfg.outer_lr,
+            outer_momentum=cfg.outer_momentum,
         )
         if self.averager is not None:
             # The checkpoint sidecars reach the averager's wire state here.

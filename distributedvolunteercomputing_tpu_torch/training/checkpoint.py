@@ -121,8 +121,10 @@ def _outer_state_path(snapshot_path: str) -> str:
 
 
 def _save_outer_state(trainer, snapshot_path: str) -> None:
-    """Persist the outer optimizer's anchor/momentum beside the snapshot. A
-    no-op until an outer optimizer is ported (the trainer has none)."""
+    """Persist the outer optimizer's anchor and momentum beside the snapshot
+    as flat f32 buffers (``anchor``, ``m``), the reference's format: a
+    preemption then keeps the outer momentum instead of re-seeding it. A
+    no-op without an outer optimizer or before its first round."""
     anchor = getattr(trainer, "_outer_anchor", None)
     if getattr(trainer, "outer_optimizer", "none") == "none" or anchor is None:
         return

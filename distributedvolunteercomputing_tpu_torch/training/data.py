@@ -16,13 +16,17 @@ for the zoo's two image shapes are committed beside this module
 (``prototypes/image_<H>x<W>x<C>_<classes>.npy``, written once from the
 reference's ``_image_prototypes``): port and JAX volunteers train the same
 task. Any other shape draws its prototypes from a fixed torch seed.
+
+Real data swaps in through ``npz_batch_iter``: shuffled minibatches of an
+``.npz`` file, numpy only, byte-equal to the reference's for the same file
+and seed.
 """
 
 from __future__ import annotations
 
 import functools
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -109,3 +113,33 @@ def synthetic_mlm_batch(
     mask = torch.rand(toks.shape, generator=gen, device=gen.device) < mask_rate
     inputs = torch.where(mask, mask_id, toks)
     return {"tokens": inputs, "targets": toks, "mask": mask.float()}
+
+
+def npz_batch_iter(path: str, batch_size: int, seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless shuffled minibatches from an ``.npz`` of aligned arrays.
+
+    The file's keys become the batch's keys, so they must match the model's
+    schema (``x``/``y`` for image models, ``tokens``/``targets`` for LMs,
+    plus ``mask`` for MLM). Each pass reshuffles with
+    ``np.random.default_rng(seed)``, as the reference does; the trailing
+    partial batch is dropped. Batches are host numpy; the trainer moves them
+    to the device."""
+    data = {k: np.asarray(v) for k, v in np.load(path).items()}
+    if not data:
+        raise ValueError(f"{path}: empty npz")
+    n = len(next(iter(data.values())))
+    for k, v in data.items():
+        if len(v) != n:
+            raise ValueError(f"{path}: key {k!r} has {len(v)} rows, expected {n}")
+    if n < batch_size:
+        raise ValueError(f"{path}: {n} examples < batch_size {batch_size}")
+
+    def gen() -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng(seed)
+        while True:
+            idx = rng.permutation(n)
+            for s in range(0, n - batch_size + 1, batch_size):
+                sel = idx[s : s + batch_size]
+                yield {k: v[sel] for k, v in data.items()}
+
+    return gen()

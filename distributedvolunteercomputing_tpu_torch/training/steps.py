@@ -5,6 +5,11 @@ Forward + backward + optimizer update on the device. PyTorch runs eagerly,
 so there is no jit: ``make_train_step`` returns a plain function. The step
 updates the state in place (params, optimizer moments, step counter), the
 counterpart of the reference donating its state to the jitted step.
+
+Gradient-averaging mode splits the step in two (``make_grad_step``,
+``make_apply_step``) so the gradients can cross the averager between the
+backward pass and the optimizer; ``make_multi_step`` runs several fused
+steps in one call (the trainer's ``steps_per_call``).
 """
 
 from __future__ import annotations
@@ -96,6 +101,60 @@ def make_train_step(
         return apply_half(tx, state, grads), metrics
 
     return step
+
+
+def make_multi_step(
+    loss_fn: LossFn, tx: Optimizer, accum_steps: int = 1
+) -> Callable[[TrainState, Batch], Tuple[TrainState, torch.Tensor]]:
+    """N fused train steps in one call: ``(state, stacked_batches) ->
+    (state, per_step_losses)``; the leading axis of every batch leaf is the
+    step index.
+
+    The reference scans the same traced body inside one compiled call; here
+    it is a Python loop over the fused step, so each step is bit-equal to a
+    single call of ``make_train_step`` (same ops, same order). The losses
+    stay on the device as one stacked tensor: nothing in the chunk waits for
+    the host (the optimizer's bias corrections and schedule are host
+    floats). Capturing the chunk as a CUDA graph would take the per-step
+    enqueue off the host; that is speed work this function does not do."""
+    step = make_train_step(loss_fn, tx, accum_steps)
+
+    def multi(state: TrainState, batches: Batch) -> Tuple[TrainState, torch.Tensor]:
+        n = next(iter(batches.values())).shape[0]
+        losses = []
+        for i in range(n):
+            state, metrics = step(state, {k: v[i] for k, v in batches.items()})
+            losses.append(metrics["loss"])
+        return state, torch.stack(losses)
+
+    return multi
+
+
+def make_grad_step(
+    loss_fn: LossFn, accum_steps: int = 1
+) -> Callable[[TrainState, Batch], Tuple[Any, Metrics, torch.Generator]]:
+    """Gradient-averaging mode, half 1: fwd/bwd without the update,
+    ``(state, batch) -> (grads, metrics, rng)``. ``grads`` is a tree shaped
+    like the params, None at a leaf the loss does not reach (LoRA's frozen
+    base); ``rng`` is the state's step generator, for ``make_apply_step``."""
+
+    def grad_step(state: TrainState, batch: Batch) -> Tuple[Any, Metrics, torch.Generator]:
+        grads, metrics = grad_half(loss_fn, state, batch, accum_steps)
+        return tree_unflatten(tree_flatten(state.params)[1], grads), metrics, state.rng
+
+    return grad_step
+
+
+def make_apply_step(tx: Optimizer) -> Callable[[TrainState, Any, torch.Generator], TrainState]:
+    """Gradient-averaging mode, half 2: the optimizer update from (possibly
+    swarm-averaged) grads, a tree shaped like the params (None leaves
+    untouched), in place; ``rng`` becomes the state's step generator."""
+
+    def apply_step(state: TrainState, grads: Any, rng: torch.Generator) -> TrainState:
+        state.rng = rng
+        return apply_half(tx, state, tree_flatten(grads)[0])
+
+    return apply_step
 
 
 def make_eval_step(loss_fn: LossFn) -> Callable[[Any, Batch, torch.Generator], Metrics]:

@@ -17,6 +17,11 @@ The other modes: ``--averaging gossip``; ``--averaging butterfly``, on a
 ``--average-interval-s`` sets another (0 = the step cadence); and
 ``--averaging byzantine --method trimmed_mean --resilience`` (full-mesh
 robust rounds with the phi-accrual detector, the policy and the controller).
+``--average-what grads`` averages every step's gradients instead (sync or
+byzantine); ``--outer-optimizer nesterov`` puts a DiLoCo-style Nesterov step
+over params rounds; ``--data x.npz`` trains on a file (``experiments/
+make_npz.py`` writes one) with ``--eval-every`` / ``--eval-batches`` for a
+held-out eval stream; ``--steps-per-call N`` fuses up to N steps per call.
 Without ``--model`` it trains the reference's default, mnist_mlp
 (capability config 1); ``--list-models`` prints the ported zoo.
 
@@ -35,8 +40,6 @@ import json
 
 # dest -> what it belongs to, for the flags whose slice is not ported yet.
 LATER_FLAGS = {
-    "steps_per_call": "multi-step calls",
-    "average_what": "gradient averaging",
     "topk_frac": "the topk wire",
     "topk_warmup_rounds": "the topk wire",
     "psgd_rank": "the powersgd wire",
@@ -49,12 +52,6 @@ LATER_FLAGS = {
     "fsdp": "fsdp",
     "seq_sharded": "sequence parallelism",
     "sp_impl": "sequence parallelism",
-    "data": ".npz data",
-    "eval_every": "evaluation",
-    "eval_batches": "evaluation",
-    "outer_optimizer": "the outer optimizer",
-    "outer_lr": "the outer optimizer",
-    "outer_momentum": "the outer optimizer",
 }
 
 
@@ -382,6 +379,8 @@ def main() -> None:
             averaging=args.averaging,
             average_every=args.average_every,
             average_interval_s=args.average_interval_s,
+            steps_per_call=args.steps_per_call,
+            average_what=args.average_what,
             wire=args.wire,
             overlap=args.overlap,
             max_staleness=args.max_staleness,
@@ -394,6 +393,7 @@ def main() -> None:
             mesh_collective=args.mesh_collective,
             host_replica=args.host_replica,
             secret_file=args.secret_file,
+            data_path=args.data,
             optimizer=args.optimizer,
             lr=args.lr,
             seed=args.seed,
@@ -402,6 +402,8 @@ def main() -> None:
             steps=args.steps,
             target_loss=args.target_loss,
             target_mode=args.target_mode,
+            eval_every=args.eval_every,
+            eval_batches=args.eval_batches,
             metrics_path=args.metrics,
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_every=args.checkpoint_every,
@@ -414,6 +416,9 @@ def main() -> None:
             adapt=not args.no_adapt,
             phi_threshold=args.phi_threshold,
             round_deadline_s=args.round_deadline_s,
+            outer_optimizer=args.outer_optimizer,
+            outer_lr=args.outer_lr,
+            outer_momentum=args.outer_momentum,
             telemetry=not args.no_telemetry,
             health_probe=not (args.no_telemetry or args.no_health_probe),
             watchdog=not (args.no_telemetry or args.no_watchdog),

@@ -78,6 +78,22 @@ MODELS_SLICE = (
 )
 
 
+# The modules of the trainer slice (gradient mode, multi-step calls, eval,
+# the outer optimizer, .npz data).
+TRAINER_SLICE = (
+    "distributedvolunteercomputing_tpu_torch.training.steps",
+    "distributedvolunteercomputing_tpu_torch.training.data",
+    "distributedvolunteercomputing_tpu_torch.training.trainer",
+    "distributedvolunteercomputing_tpu_torch.training.checkpoint",
+    "distributedvolunteercomputing_tpu_torch.parallel.train_step",
+    "distributedvolunteercomputing_tpu_torch.swarm.volunteer",
+)
+
+
+def test_scans_cover_the_trainer_slice():
+    assert set(TRAINER_SLICE) <= {m for m, _ in _port_modules()}
+
+
 def test_scans_cover_the_models_slice():
     assert set(MODELS_SLICE) <= {m for m, _ in _port_modules()}
 
@@ -101,7 +117,7 @@ def test_entry_scripts_load_no_jax():
     code = (
         "import importlib, json, runpy, sys\n"
         f"for s in {[str(p) for p in ENTRY_SCRIPTS]!r}: runpy.run_path(s)\n"
-        f"for m in {list(LIFECYCLE_SLICE + PROTOCOLS_SLICE + MODELS_SLICE) + ['distributedvolunteercomputing_tpu_torch.swarm.volunteer']!r}:\n"
+        f"for m in {list(LIFECYCLE_SLICE + PROTOCOLS_SLICE + MODELS_SLICE + TRAINER_SLICE)!r}:\n"
         "    importlib.import_module(m)\n"
         "sys.argv = ['run_volunteer_torch.py', '--list-models']\n"
         f"runpy.run_path({str(ENTRY_SCRIPTS[1])!r}, run_name='__main__')\n"
@@ -141,7 +157,7 @@ def test_import_loads_no_jax():
 SCRIPTS = [REPO / "chip_smoke.py"] + ENTRY_SCRIPTS + [REPO / "experiments" / f for f in (
     "torch_step_profile.py", "torch_ring_cards.py", "torch_dp_trace.py", "torch_attention_shapes.py",
     "torch_dq_variants.py", "torch_codec_variants.py", "torch_avg_ab.py", "torch_departed_member.py",
-    "torch_ring_variants.py")]
+    "torch_ring_variants.py", "torch_trainer_modes.py")]
 
 
 @pytest.mark.parametrize("path", SCRIPTS + [p for _, p in _port_modules()], ids=lambda p: p.name)

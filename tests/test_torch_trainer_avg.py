@@ -128,11 +128,11 @@ def test_merges_match_reference(overlap):
 def test_trainer_refuses_what_is_not_ported():
     bundle = get_model("gpt2_small", **TINY)
     with pytest.raises(TypeError):
-        Trainer(bundle, batch_size=2, device="cpu", averager=lambda p, s: None, average_what="grads")
+        Trainer(bundle, batch_size=2, device="cpu", fsdp=True)
     with pytest.raises(TypeError):
-        Trainer(bundle, batch_size=2, device="cpu", outer_optimizer="nesterov")
+        Trainer(bundle, batch_size=2, device="cpu", seq_sharded=True)
     with pytest.raises(NotImplementedError, match="not ported"):
-        VolunteerConfig(averaging="gossip", average_what="grads")
+        VolunteerConfig(averaging="sync", group_size=4)
     with pytest.raises(NotImplementedError, match="not ported"):
         VolunteerConfig(averaging="sync", wire="q8")
 
