@@ -214,9 +214,41 @@ The trainer's other modes (run after phases 4, 6, 6, 14 and 16):
 23. resnet_file  capability config 7: phase 16 with both volunteers on a
             ``--task cifar10`` file (per-peer shuffles), phase 6's checks.
 
+The volunteer under faults and on a zoned schedule (run after phase 13):
+24. zones   four full-width volunteers in this process in zones ``ZONES``
+            (a, a, b, b) on the zoned group schedule: groups of 2, rotations
+            every ``ZONE_ROTATION_S`` on the wall clock, every
+            ``ZONE_K``-th rotation across zones; blocking bf16 sync rounds
+            every ``AVG_EVERY`` steps. Until each has committed
+            ``ZONE_COMMITS`` (2 intra-zone, 1 cross-zone) rounds. Checked:
+            intra groups inside one zone with no ``sync.*`` byte across
+            zones and ``zone_traffic()``'s cross-zone bytes under
+            ``ZONE_CTRL_BYTES`` during the round; cross groups spanning both
+            zones; a round of each level within ``AVG_TOL``; K1-K3 24 / 12
+            / 12 per step; K4 and K5 at the counts the rounds imply.
+25. failover  a sync leader SIGKILLed mid-stream across processes: a
+            ``coordinator_torch.py`` process and three full-width
+            ``run_volunteer_torch.py`` processes; ``a0`` (``--min-group 3``,
+            ``DVC_CHAOS_LEADER_DIE_PHASE=mid_stream``) first, then ``b1``
+            and ``c2`` (``--min-group 2``). Checked: ``a0`` exits by
+            SIGKILL; the survivors depose it, one recovers the round, each
+            commits after it and exits 0 on SIGTERM; their codec stats all
+            on the device (K5 launches equal to their folders' flushes, some
+            K5 launch); K1-K3 per step from their ``VOLUNTEER_DONE``.
+26. hedge   hedged tile recovery at full width: a leader and two members
+            (``SyncAverager``s on ``ChaosTransport``s, the device codec), a
+            gpt2_small-sized flat buffer each, one member's push on a thin
+            link that would land past the round deadline; with
+            ``hedge=True`` the refetched tiles fold on K5 and the result is
+            within ``AVG_TOL`` of the weighted mean of all three, with
+            ``hedge=False`` of the other two; round seconds and lost mass of
+            both arms.
+
 Then one line listing every kernel (``launches_lifecycle``: the counts of
 phase 10, ``launches_protocols`` those of phases 11-13, ``launches_models``
 those of phases 15-18, ``launches_trainer_modes`` those of phases 19-23,
+``launches_faults`` those of phases 24-26 (failover: the survivors'
+processes' counts from their summaries),
 ``shapes_models`` K1-K3 at the models' shapes),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script
@@ -1117,8 +1149,9 @@ def expected_codec_launches(
 
 class ProtoRecorder:
     """Wraps an in-process volunteer's averager callback and its group
-    formation. Per averaging call: the group it formed (epoch, size), the
-    contribution's weight, the outcome (partners on time and absent,
+    formation. Per averaging call: the group it formed (epoch, size, member
+    ids, and the schedule's group id and level when a group schedule
+    assigned it), the contribution's weight, the outcome (partners on time and absent,
     degraded) and the seconds; with ``keep``, the flat payload and result of
     the last ``keep`` calls that returned a result. The weight is the
     samples behind the contribution as the recorder counts them: the batch
@@ -1134,7 +1167,8 @@ class ProtoRecorder:
 
         self.vol, self.calls, self.groups = vol, [], 0
         self.buffers = collections.deque(maxlen=keep)
-        self.group = self.outcome = None
+        self.group = self.outcome = self.last_params = None
+        self.members, self.assignment = [], None
         self.last_merge = int(vol.trainer.state.step)
         self.before = lambda: None
         self.after = lambda call, result: None
@@ -1146,6 +1180,8 @@ class ProtoRecorder:
         async def counted_form_group(round_key):
             group = await form_group(round_key)
             self.group = (group.epoch, len(group.members)) if group is not None else None
+            self.members = [pid for pid, _ in group.members] if group is not None else []
+            self.assignment = avg._last_group if avg.group_schedule is not None else None
             self.groups += group is not None
             return group
 
@@ -1157,7 +1193,8 @@ class ProtoRecorder:
         def cb(params, step):
             if vol._stop.is_set():
                 return None
-            self.group = self.outcome = None
+            self.group = self.outcome = self.assignment = None
+            self.members, self.last_params = [], params
             self.before()
             weight = vol.cfg.batch_size * max(1, step - self.last_merge)
             t0 = time.perf_counter()
@@ -1166,7 +1203,9 @@ class ProtoRecorder:
             call = {
                 "step": step, "weight": weight, "s": time.perf_counter() - t0, "ok": result is not None,
                 "epoch": self.group[0] if self.group else None, "size": self.group[1] if self.group else 0,
-                "outcomes": outcomes, "degraded": degraded,
+                "members": self.members, "outcomes": outcomes, "degraded": degraded,
+                "group_id": self.assignment.group_id if self.assignment else None,
+                "level": self.assignment.level if self.assignment else None,
             }
             if result is not None:
                 self.last_merge = step
@@ -1410,6 +1449,38 @@ def check_averaged_values(records, failures, all_rounds: bool = False, nearest_l
         return out
     failures.append("no streamed round with both results recorded")
     return {}
+
+
+def group_values(group: dict, leader: str, failures: list) -> dict:
+    """One committed round of a group of any size: ``group`` maps each member
+    to its record (weight, payload, result). The leader's result against the
+    f64 weighted mean of every member's payload, each member's against the
+    leader's (``AVG_TOL``, as ``check_averaged_values``); f64 on the card."""
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    tol = AVG_TOL
+    xs = {pid: torch.from_numpy(r["payload"]).to(dev, torch.float64) for pid, r in group.items()}
+    ws = {pid: r["weight"] for pid, r in group.items()}
+    want = sum(ws[p] * xs[p] for p in xs) / sum(ws.values())
+    scale = torch.stack(list(xs.values())).abs().amax(0)
+    del xs
+    lead = torch.from_numpy(group[leader]["result"]).to(dev, torch.float64)
+    err = (lead - want).abs()
+    out = {"members": list(group), "leader": leader, "weights": ws, "step": group[leader]["step"],
+           "leader_max_abs_err": err.max().item(),
+           "leader_limit_used": (err / ((tol["bf16_u"] + tol["f32_ulps"]) * scale + tol["floor"])).max().item(),
+           "member_limit_used": 0.0, "finite": bool(torch.isfinite(lead).all())}
+    del want, scale, err
+    lim = (tol["bf16_u"] + tol["f32_ulps"]) * lead.abs() + tol["floor"]
+    for pid, r in group.items():
+        if pid != leader:
+            got = torch.from_numpy(r["result"]).to(dev, torch.float64)
+            out["member_limit_used"] = max(out["member_limit_used"], ((got - lead).abs() / lim).max().item())
+            out["finite"] &= bool(torch.isfinite(got).all())
+            del got
+    del lead, lim
+    if not (out["finite"] and out["leader_limit_used"] <= 1.0 and out["member_limit_used"] <= 1.0):
+        failures.append(f"averaged values outside AVG_TOL: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2202,12 +2273,13 @@ def release_card_memory() -> None:
 
 
 async def start_volunteers(n, out_dir, what, first: int = 0, coordinator=None, model: str = "gpt2_small",
-                           batch_size: int = 8, **kw):
+                           batch_size: int = 8, per=None, **kw):
     """In-process volunteers ``first`` .. ``first + n - 1`` of one phase,
     ``model`` at full width (gpt2_small, batch 8 by default), blocking
     rounds on the bf16 wire, bootstrapping from ``coordinator``, else from
-    the first of them. Each gets ``init_memory``: the card memory its start
-    left resident and the peak above what was allocated before it."""
+    the first of them; ``per(i)`` adds volunteer i's own config fields. Each
+    gets ``init_memory``: the card memory its start left resident and the
+    peak above what was allocated before it."""
     from distributedvolunteercomputing_tpu_torch.swarm.volunteer import Volunteer, VolunteerConfig
 
     release_card_memory()
@@ -2216,11 +2288,13 @@ async def start_volunteers(n, out_dir, what, first: int = 0, coordinator=None, m
         paths.append(out_dir / f"{what}_volunteer{i}.jsonl")
         paths[-1].unlink(missing_ok=True)
         boot = coordinator or ("%s:%d" % vols[0].transport.addr if vols else None)
-        vols.append(Volunteer(VolunteerConfig(
+        fields = dict(
             model=model, batch_size=batch_size, wire="bf16", overlap=False, steps=PROTO_MAX_STEPS,
             mesh_codec="mesh", gather_timeout=PROTO_GATHER_S, peer_id=f"{what}{i}", seed=i + 1,
-            metrics_path=str(paths[-1]), coordinator=boot, **kw,
-        )))
+            metrics_path=str(paths[-1]), coordinator=boot,
+        )
+        fields.update(kw, **(per(i) if per else {}))
+        vols.append(Volunteer(VolunteerConfig(**fields)))
         cuda_sync()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2770,6 +2844,486 @@ def byzantine_phase(model: str = "gpt2_small", batch_size: int = 8, phase: str =
 # ---------------------------------------------------------------------------
 # the model zoo: capability configs 1, 2, 3 and 5, and the ViT
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# the volunteer under faults and on a zoned schedule: zoned group rounds,
+# a sync leader's death across processes, hedged tile recovery
+# ---------------------------------------------------------------------------
+
+ZONES = ("a", "a", "b", "b")  # the zones phase's volunteers, in peer-id order
+ZONE_GROUP = 2  # group_size
+ZONE_K = 2  # cross_zone_every_k: even rotations cross zones, odd ones stay inside
+ZONE_ROTATION_S = 10.0  # group_rotation_s: four rotations fit in ~40 s
+# Committed rounds of each level each volunteer must make; a cross round
+# counts when its group spans both zones (the cross grid is zone-blind: a
+# hashed group can also land inside one zone, or hold all four).
+ZONE_COMMITS = {"intra": 2, "cross": 1}
+ZONE_GATHER_S = 30.0  # gather ceiling: a scheduled member that never joins costs this much
+# On an intra round no averaging byte crosses a zone; a volunteer's other
+# traffic (heartbeats, DHT stores) still does. The bound on all of it during
+# such a round is far under one payload (249 MB at full width).
+ZONE_CTRL_BYTES = 1 << 20
+FAIL_EVERY = 2  # the failover phase's averaging cadence (steps)
+FAIL_WAIT_S = 300.0  # cap on each wait of the failover phase
+FAIL_PHASE = "mid_stream"  # where the leader dies: after part of the stream folded on K5
+HEDGE_BUDGET_S = 12.0  # the hedge phase's static round deadline
+HEDGE_LATE = 2.0  # the straggler's push would land this many budgets late (a thin link)
+HEDGE_WEIGHTS = (1.0, 2.0, 3.0)  # leader, member, straggler
+
+
+def _sync_bytes_counter(vol, zone_of, counts) -> None:
+    """Wrap ``vol``'s transport so the request and reply payload bytes of its
+    ``sync.*`` calls add to ``counts[peer]["intra" | "cross"]`` by the
+    destination's zone (each averaging byte is counted once, at its
+    sender's call)."""
+    from distributedvolunteercomputing_tpu_torch.swarm.transport import _payload_len
+
+    pid, t, mem = vol.cfg.peer_id, vol.transport, vol.membership
+    call = t.call
+
+    async def counting(addr, method, args=None, payload=b"", *a, **kw):
+        out = await call(addr, method, args, payload, *a, **kw)
+        if method.startswith("sync."):
+            z = mem.zone_by_addr().get((str(addr[0]), int(addr[1])))
+            reply = out[1] if isinstance(out, tuple) and len(out) == 2 else b""
+            side = "intra" if z == zone_of[pid] else "cross"
+            counts[pid][side] += _payload_len(payload) + _payload_len(reply or b"")
+        return out
+
+    t.call = counting
+
+
+def zones_phase() -> dict:
+    """Four full-width volunteers in two zones (``ZONES``) on the zoned group
+    schedule: groups of ``ZONE_GROUP``, rotations every ``ZONE_ROTATION_S``
+    on the wall clock, every ``ZONE_K``-th rotation across zones, blocking
+    bf16 sync rounds every ``AVG_EVERY`` steps, the device codec. Until each
+    has committed ``ZONE_COMMITS`` rounds of each level (cross: groups that
+    span both zones). Checked: intra groups of two inside one zone, with no
+    ``sync.*`` byte across zones and ``zone_traffic()``'s cross-zone bytes
+    under ``ZONE_CTRL_BYTES``; a recorded round of each level whose whole
+    group committed within ``AVG_TOL`` (leader against the weighted mean of
+    the group's payloads, members against the leader); K1-K3 per step; K4
+    and K5 at the counts the rounds imply."""
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer
+
+    out_dir = HERE / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    failures = []
+    zone_of = {f"zones{i}": z for i, z in enumerate(ZONES)}
+    sync_bytes = {pid: {"intra": 0, "cross": 0} for pid in zone_of}
+    # level -> the last two committed calls (cross: zone-spanning), with payload and result
+    kept = {pid: {lv: collections.deque(maxlen=2) for lv in ZONE_COMMITS} for pid in zone_of}
+
+    def committed(rec, level):
+        """Committed rounds of ``level`` (cross: those spanning both zones)."""
+        return [c for c in rec.calls if c["ok"] and c["level"] == level
+                and (level != "cross" or len(c["zones"]) == 2)]
+
+    def instrument(vol):
+        pid, avg = vol.cfg.peer_id, vol.averager
+        _sync_bytes_counter(vol, zone_of, sync_bytes)
+        rec = ProtoRecorder(vol, keep=0)
+        mark = {}
+
+        def before():
+            mark["sync"] = dict(sync_bytes[pid])
+            mark["zt"] = avg.zone_traffic()
+
+        def after(c, result):
+            zt = avg.zone_traffic()
+            c["sync_bytes"] = {k: sync_bytes[pid][k] - mark["sync"][k] for k in ("intra", "cross")}
+            c["zone_traffic_cross"] = sum(zt[f"cross_zone_bytes_{d}"] - mark["zt"][f"cross_zone_bytes_{d}"]
+                                          for d in ("sent", "received"))
+            c["zones"] = sorted({zone_of.get(m, "?") for m in c["members"]})
+            c["leader"] = c["members"][0] if c["members"] else None
+            if result is not None and c["level"] in ZONE_COMMITS and (c["level"] != "cross" or len(c["zones"]) == 2):
+                kept[pid][c["level"]].append({**c, "payload": flatten_to_buffer(rec.last_params)[0],
+                                              "result": flatten_to_buffer(result)[0]})
+
+        rec.before, rec.after = before, after
+        return rec
+
+    async def run():
+        vols, paths = await start_volunteers(
+            len(ZONES), out_dir, "zones", averaging="sync", average_every=AVG_EVERY, join_timeout=4.0,
+            gather_timeout=ZONE_GATHER_S,
+            group_size=ZONE_GROUP, group_rotation_s=ZONE_ROTATION_S, cross_zone_every_k=ZONE_K,
+            per=lambda i: {"zone": ZONES[i]},
+        )
+        try:
+            recs = [instrument(v) for v in vols]
+            for r in recs:
+                r.done = lambda _r: all(len(committed(x, lv)) >= n for x in recs for lv, n in ZONE_COMMITS.items())
+            out = await train_until(vols, recs, "zones")
+            return (vols, paths, recs, *out, [v.averager.zone_traffic() for v in vols])
+        finally:
+            await asyncio.gather(*(v.stop() for v in vols))
+
+    vols, paths, recs, summaries, run_s, launches, traffic = asyncio.run(run())
+    pids = list(zone_of)
+    calls = {pid: r.calls for pid, r in zip(pids, recs)}
+    agg = [s.get("aggregation", {}) for s in summaries]
+    row = {"phase": "zones", "model": "gpt2_small", "batch_size": 8, "wire": "bf16", "zones": zone_of,
+           "group_size": ZONE_GROUP, "group_rotation_s": ZONE_ROTATION_S, "cross_zone_every_k": ZONE_K,
+           "average_every": AVG_EVERY, "run_s": run_s,
+           "committed": {pid: {lv: len(committed(r, lv)) for lv in ZONE_COMMITS} for pid, r in zip(pids, recs)},
+           "committed_by_size": {pid: dict(collections.Counter(f"{c['level']}:{c['size']}:{'+'.join(c['zones'])}"
+                                                                for c in r.calls if c["ok"])) for pid, r in zip(pids, recs)},
+           "gather_timeout": ZONE_GATHER_S, "hedge": [s.get("hedge") for s in summaries],
+           "rounds_skipped": [s["rounds_skipped"] for s in summaries],
+           "round_s": {lv: [c["s"] for r in recs for c in committed(r, lv)] for lv in ZONE_COMMITS},
+           "calls": {pid: [{k: c[k] for k in ("step", "ok", "s", "weight", "group_id", "level", "members",
+                                              "sync_bytes", "zone_traffic_cross")} for c in cs]
+                     for pid, cs in calls.items()},
+           "zone_traffic": traffic,
+           "aggregation": agg, "launches": launches}
+    row.update(proto_checks("zones", vols, summaries, paths, launches, failures))
+    for pid, r in zip(pids, recs):
+        for lv, n in ZONE_COMMITS.items():
+            if len(committed(r, lv)) < n:
+                failures.append(f"zones: {pid} committed {len(committed(r, lv))} {lv} rounds < {n}")
+        for c in r.calls:
+            if not c["ok"]:
+                continue
+            if c["level"] == "intra" and not (len(c["zones"]) == 1 and c["sync_bytes"]["cross"] == 0
+                                              and c["zone_traffic_cross"] < ZONE_CTRL_BYTES):
+                failures.append(f"zones: {pid}'s intra round left its zone: {c['group_id']} {c['members']} "
+                                f"sync {c['sync_bytes']} zone_traffic cross {c['zone_traffic_cross']}")
+            if c["level"] == "intra" and c["size"] != ZONE_GROUP:
+                failures.append(f"zones: {pid} committed an intra round of {c['size']} ({c['group_id']})")
+            if c["level"] not in ("intra", "cross"):
+                failures.append(f"zones: {pid} committed a {c['level']} round ({c['group_id']}) on the zoned grid")
+    # K4: each formed group packs twice (health probe, whole buffer), and each
+    # member's fetch of a committed round reads the leader's lazy result
+    # stream, which encodes the result once per fetch. K5: one launch per
+    # flush of each leader's staged folder.
+    fetched = sum(1 for pid, r in zip(pids, recs) for c in r.calls if c["ok"] and c["leader"] != pid)
+    expect = {"bf16_encode": 2 * sum(r.groups for r in recs) + fetched,
+              "bf16_fold_chunks": sum(a.get("folder_flushes", 0) for a in agg)}
+    row["codec_launches_expected"] = expect
+    if sum(a.get("aborted_contribs", 0) + a.get("tiles_recovered", 0) + a.get("hedge_duplicates", 0)
+           for a in agg):
+        failures.append("zones: aborted or hedged contributions: the launch counts would not be exact")
+    if {k: launches[k] for k in expect} != expect or not expect["bf16_fold_chunks"]:
+        failures.append(f"zones: codec launches {[launches[k] for k in expect]} != expected {expect}")
+    values, seen = [], set()
+    for lv in ZONE_COMMITS:
+        for rec in [r for pid in pids for r in kept[pid][lv]]:
+            epoch = rec["epoch"]
+            group = {pid: next((r for r in kept[pid][lv] if r["epoch"] == epoch), None) for pid in rec["members"]}
+            if epoch in seen or any(r is None for r in group.values()):
+                continue
+            seen.add(epoch)
+            values.append({"level": lv, "group_id": rec["group_id"], **group_values(group, rec["members"][0], failures)})
+    if {v["level"] for v in values} != set(ZONE_COMMITS):
+        failures.append(f"zones: rounds whose whole group was recorded, by level: {[v['level'] for v in values]}")
+    row["values"] = values
+    del kept
+    emit(row)
+    if failures:
+        raise AssertionError(f"zones phase: {failures}")
+    return launches
+
+
+def failover_phase() -> dict:
+    """A sync leader SIGKILLed mid-round across processes: a
+    ``coordinator_torch.py`` process and three ``run_volunteer_torch.py``
+    processes, gpt2_small at full width, blocking bf16 sync rounds every
+    ``FAIL_EVERY`` steps. ``a0`` starts first with ``--min-group 3`` and
+    ``DVC_CHAOS_LEADER_DIE_PHASE`` = ``FAIL_PHASE``; ``b1`` and ``c2`` then
+    start together with ``--min-group 2``. Until ``a0``'s first round, no
+    bulk transfer has run, so no volunteer advertises an uplink and the
+    smallest id, ``a0``, leads (the survivors first would have averaged
+    alone, advertised their measured uplinks, and out-ranked a newcomer
+    with none: ``Matchmaker._pick_leader``); ``a0``'s rendezvous record
+    keeps the survivors waiting for its begin until all three have joined.
+    Checked: ``a0`` exits by SIGKILL; the survivors commit no round before
+    it dies and at least two after (the recovered round and one more),
+    then exit 0 on SIGTERM; each deposed ``a0``, one recovered the round;
+    their codec stats: device backend, no host op, K4 launches, K5 launches
+    equal to their folders' flushes and some K5 launch; K1-K3 per step."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    (HERE / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="failover_", dir=HERE / "build"))
+    procs, files, failures = {}, [], []
+    paths = {k: tmp / f"{k}.jsonl" for k in ("a0", "b1", "c2")}
+
+    def spawn(name, argv, env=None):
+        out, err = open(tmp / f"{name}.out", "w"), open(tmp / f"{name}.log", "w")
+        files.extend((out, err))
+        procs[name] = subprocess.Popen([sys.executable, *map(str, argv)], cwd=str(HERE), env=env,
+                                       stdout=out, stderr=err)
+        return procs[name]
+
+    def tail(name, n=3000) -> str:
+        p = tmp / f"{name}.log"
+        return p.read_text()[-n:] if p.exists() else ""
+
+    def wait_for(what, cond, alive=()):
+        deadline = time.monotonic() + FAIL_WAIT_S
+        while not cond():
+            for name in alive:
+                if procs[name].poll() is not None:
+                    raise AssertionError(f"failover: {name} exited ({procs[name].returncode}) waiting for "
+                                         f"{what}: {tail(name)}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"failover: timed out waiting for {what}")
+            time.sleep(0.5)
+
+    def ok_rounds(name) -> int:
+        return committed_rounds(read_jsonl(paths[name]))
+
+    def volunteer(name, seed, min_group, env):
+        return spawn(name, [HERE / "run_volunteer_torch.py", "--model", "gpt2_small", "--batch-size", "8",
+                            "--averaging", "sync", "--wire", "bf16", "--mesh-codec", "mesh",
+                            "--average-every", FAIL_EVERY, "--no-overlap",
+                            "--min-group", min_group, "--coordinator", addr, "--metrics", paths[name],
+                            "--peer-id", name, "--seed", seed, "--steps", 100000], env=env)
+
+    t0 = time.perf_counter()
+    summaries, timeline = {}, {}
+    try:
+        spawn("coord", [HERE / "coordinator_torch.py", "--port", "0"])
+        ready = tmp / "coord.out"
+        wait_for("the coordinator", lambda: "COORDINATOR_READY" in ready.read_text(), alive=("coord",))
+        addr = ready.read_text().split("COORDINATOR_READY", 1)[1].split()[0]
+        release_card_memory()  # three processes share the card with this one
+        volunteer("a0", 1, 3, {**os.environ, "DVC_CHAOS_LEADER_DIE_PHASE": FAIL_PHASE})
+        # a0 has trained past its first cadence point: its rendezvous record is up.
+        wait_for("a0's first steps", lambda: len([r for r in read_jsonl(paths["a0"]) if "loss" in r]) >= FAIL_EVERY,
+                 alive=("a0",))
+        timeline["a0_ready_s"] = time.perf_counter() - t0
+        for name, seed in (("b1", 2), ("c2", 3)):
+            volunteer(name, seed, 2, dict(os.environ))
+        wait_for("a0's death", lambda: procs["a0"].poll() is not None, alive=("b1", "c2"))
+        timeline["a0_dead_s"] = time.perf_counter() - t0
+        before = {n: ok_rounds(n) for n in ("b1", "c2")}
+        wait_for("two committed rounds on each survivor", lambda: all(ok_rounds(n) >= 2 for n in ("b1", "c2")),
+                 alive=("b1", "c2"))
+        timeline["survivors_two_rounds_s"] = time.perf_counter() - t0
+        for n in ("b1", "c2"):
+            procs[n].send_signal(signal.SIGTERM)
+        for n in ("b1", "c2"):
+            try:
+                procs[n].wait(timeout=180)
+            except subprocess.TimeoutExpired:
+                failures.append(f"failover: {n} did not exit within 180 s of SIGTERM")
+                procs[n].kill()
+            text = (tmp / f"{n}.out").read_text()
+            done = [ln for ln in text.splitlines() if ln.startswith("VOLUNTEER_DONE ")]
+            summaries[n] = json.loads(done[-1][len("VOLUNTEER_DONE "):]) if done else {}
+        timeline["survivors_exited_s"] = time.perf_counter() - t0
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+        logs = {n: tail(n, 1500) for n in ("a0", "b1", "c2")}
+        # Steps each trained (its loss records): a survivor that pulled a0's
+        # state starts counting from a0's step.
+        trained = {n: len([r for r in read_jsonl(paths[n]) if "loss" in r]) for n in ("b1", "c2")}
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    per_step = flash_per_step("gpt2_small")
+    row = {"phase": "failover", "model": "gpt2_small", "batch_size": 8, "wire": "bf16", "every": FAIL_EVERY,
+           "die_phase": FAIL_PHASE, "timeline_s": timeline, "a0_returncode": procs["a0"].returncode,
+           "returncodes": {n: procs[n].returncode for n in ("b1", "c2")}, "rounds_before_death": before,
+           "survivors": {}}
+    launches = {k: 0 for k in (*KERNELS, *CODEC_KERNELS)}
+    if procs["a0"].returncode != -signal.SIGKILL:
+        failures.append(f"failover: a0 exited {procs['a0'].returncode}, want -SIGKILL: {logs['a0']}")
+    recovered = 0
+    for n in ("b1", "c2"):
+        s = summaries.get(n) or {}
+        fo, codec, agg = s.get("failover") or {}, s.get("mesh_codec") or {}, s.get("aggregation") or {}
+        k = codec.get("launches") or {}
+        flash = s.get("flash_launches") or {}
+        steps = trained[n]
+        row["survivors"][n] = {"rounds_ok": s.get("rounds_ok"), "rounds_skipped": s.get("rounds_skipped"),
+                               "steps_trained": steps, "final_step": s.get("steps"), "failover": fo, "mesh_codec": codec, "flash_launches": flash,
+                               "folder_flushes": agg.get("folder_flushes", 0), "final_loss": s.get("final_loss")}
+        recovered += fo.get("rounds_recovered", 0)
+        for kname, count in {**k, **flash}.items():
+            launches[kname] = launches.get(kname, 0) + count
+        if procs[n].returncode != 0 or not s:
+            failures.append(f"failover: {n} exited {procs[n].returncode} without its summary: {logs[n]}")
+            continue
+        if before[n] > 1 or s.get("rounds_ok", 0) < 2:
+            failures.append(f"failover: {n} committed {before[n]} rounds before a0 died and "
+                            f"{s.get('rounds_ok')} in all (want <= 1 and >= 2)")
+        if fo.get("leaders_deposed", 0) < 1:
+            failures.append(f"failover: {n} never deposed a0: {fo}")
+        if codec.get("backend") != "device" or codec.get("ops_host", 1) != 0 or k.get("bf16_encode", 0) < 1:
+            failures.append(f"failover: {n}'s codec off the device path: {codec}")
+        if k.get("bf16_fold_chunks", 0) != agg.get("folder_flushes", 0):
+            failures.append(f"failover: {n}'s K5 launches {k} != its folder's {agg.get('folder_flushes')} flushes")
+        want = {kn: c * steps for kn, c in zip(KERNELS, per_step)}
+        if {kn: flash.get(kn) for kn in KERNELS} != want:
+            failures.append(f"failover: {n}'s K1-K3 launches {flash} != {want} for {steps} steps")
+    if recovered < 1:
+        failures.append("failover: no survivor recovered the killed round")
+    if not launches.get("bf16_fold_chunks"):
+        failures.append("failover: no survivor folded on K5 (the recovery's successor must)")
+    row["launches"] = launches
+    emit(row)
+    if failures:
+        raise AssertionError(f"failover phase: {failures}")
+    return launches
+
+
+def hedge_phase() -> dict:
+    """Hedged tile recovery at the averager level at full width: a leader and
+    two members (``SyncAverager``s on ``ChaosTransport``s, bf16 wire, the
+    device codec), each contributing a gpt2_small-sized flat f32 buffer (the
+    model's init plus each one's own noise: 124,439,808 floats, 249 MB on
+    the wire), weights ``HEDGE_WEIGHTS``, a static round deadline of
+    ``HEDGE_BUDGET_S``. The straggler's link to the leader is thin: its push
+    would land ``HEDGE_LATE`` budgets late (``set_link``; a refetch request
+    is meta-sized and its reply rides the unshaped return path). With
+    ``hedge=True`` the leader re-requests the straggler's tiles past its
+    soft deadline and folds them on K5: at least one hedge issued, the slot
+    recovered, the result within ``AVG_TOL`` of the weighted mean of all
+    three payloads (a tile folded twice, or one missed, would be far off).
+    With ``hedge=False`` the round commits at the deadline over the other
+    two, within ``AVG_TOL`` of their weighted mean. Each arm's round
+    seconds, lost mass (the share of contribution slots not committed) and
+    K4/K5 launches are printed; K5's equal the leader folder's flushes."""
+    from distributedvolunteercomputing_tpu_torch.models import get_model
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+    from distributedvolunteercomputing_tpu_torch.swarm.averager import SyncAverager
+    from distributedvolunteercomputing_tpu_torch.swarm.chaos import ChaosTransport
+    from distributedvolunteercomputing_tpu_torch.swarm.dht import DHTNode
+    from distributedvolunteercomputing_tpu_torch.swarm.matchmaking import Group
+    from distributedvolunteercomputing_tpu_torch.swarm.membership import SwarmMembership
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer
+
+    release_card_memory()
+    codec = mc.configure(backend="device")
+    dev = codec.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base = torch.from_numpy(flatten_to_buffer(get_model("gpt2_small").init(gen))[0]).to(dev)
+    payloads = []
+    for i in range(3):
+        noise = torch.randn(base.numel(), generator=gen, device=dev)
+        payloads.append((base + 1e-3 * noise).cpu().numpy())
+        del noise
+    n = payloads[0].size
+    failures = []
+
+    async def arm(hedge: bool) -> dict:
+        nodes = []
+        for pid in ("leader", "m0", "m1"):
+            t = ChaosTransport(seed=len(nodes))
+            dht = DHTNode(t)
+            nodes.append((pid, t, SyncAverager(t, dht, SwarmMembership(dht, pid, ttl=30.0), wire="bf16",
+                                               mesh_codec=codec, method="mean", min_group=2,
+                                               gather_timeout=HEDGE_BUDGET_S + 10.0, hedge=hedge)))
+            await t.start()
+        (_, lt, leader), (_, _, m0), (_, st, m1) = nodes
+        link_bw = (n * 2) / (HEDGE_LATE * HEDGE_BUDGET_S)
+        st.set_link(lt.addr, st.addr, bw_bps=link_bw)
+        tokens = {pid: f"tok-{pid}" for pid, _, _ in nodes}
+        members = [(pid, t.addr) for pid, t, _ in nodes]
+        epoch = f"hedge-{int(hedge)}"
+
+        def group(i):
+            return Group(epoch=epoch, members=list(members), my_index=i, token=tokens[members[i][0]],
+                         member_tokens=tokens if i == 0 else None, deadline=time.time() + HEDGE_BUDGET_S,
+                         budget=HEDGE_BUDGET_S)
+
+        try:
+            bufs = [avg._pack({"w": payloads[i]}) for i, (_, _, avg) in enumerate(nodes)]
+            cuda_sync()
+            reset_all_launch_counts()
+            t0 = time.perf_counter()
+            lead = asyncio.create_task(leader._lead_round(group(0), bufs[0], HEDGE_WEIGHTS[0]))
+            await asyncio.sleep(0.15)  # the leader has armed
+
+            async def push(i):
+                pid, t, avg = nodes[i]
+                mgroup = group(i)
+                avg._retain_push(mgroup, bufs[i], HEDGE_WEIGHTS[i])  # what average() retains for sync.refetch
+                wire = await asyncio.to_thread(avg._wire_stream, bufs[i])
+                return await t.call(lt.addr, "sync.contribute",
+                                    {"epoch": epoch, "peer": pid, "weight": HEDGE_WEIGHTS[i], "schema": leader._schema,
+                                     "token": tokens[pid]}, wire, timeout=HEDGE_LATE * HEDGE_BUDGET_S + 30.0)
+
+            pushes = [asyncio.create_task(push(i)) for i in (1, 2)]
+            result = await asyncio.wait_for(lead, timeout=HEDGE_BUDGET_S + 60.0)
+            round_s = time.perf_counter() - t0
+            cuda_sync()
+            launches = dict(mc.LAUNCHES)
+            for p in pushes:
+                if not p.done():
+                    p.cancel()
+            outcomes = await asyncio.gather(*pushes, return_exceptions=True)
+            mass = leader.health._last_mass if leader.health else None
+            return {"hedge": hedge, "round_s": round_s, "result": flatten_to_buffer(result)[0] if result else None,
+                    "mass": mass, "hedges_issued": leader.hedges_issued, "hedges_failed": leader.hedges_failed,
+                    "slots_recovered": leader.slots_recovered, "gauges": dict(leader._agg_gauges),
+                    "launches": launches, "straggler_link_bps": link_bw,
+                    "pushes": [type(o).__name__ if isinstance(o, BaseException) else "ok" for o in outcomes]}
+        finally:
+            ChaosTransport._links.clear()
+            for _, t, _ in nodes:
+                await t.close()
+
+    def value_check(res, which) -> dict:
+        xs = [torch.from_numpy(payloads[i]).to(dev, torch.float64) for i in which]
+        ws = [HEDGE_WEIGHTS[i] for i in which]
+        want = sum(w * x for w, x in zip(ws, xs)) / sum(ws)
+        scale = torch.stack([x.abs() for x in xs]).amax(0)
+        got = torch.from_numpy(res["result"]).to(dev, torch.float64)
+        err = (got - want).abs()
+        lim = (AVG_TOL["bf16_u"] + AVG_TOL["f32_ulps"]) * scale + AVG_TOL["floor"]
+        out = {"over": list(which), "weights": ws, "max_abs_err": err.max().item(),
+               "limit_used": (err / lim).max().item(), "finite": bool(torch.isfinite(got).all())}
+        del xs, want, scale, got, err, lim
+        return out
+
+    arms = {}
+    for hedge in (True, False):
+        res = asyncio.run(arm(hedge))
+        mass = res["mass"] or {}
+        row = {k: v for k, v in res.items() if k != "result"}
+        # Lost mass in slots: a straggler whose push never arrived has no
+        # known weight, so its loss shows in the slots, not the weights.
+        row["lost_slots_frac"] = 1.0 - mass["slot_committed_frac"] if mass else None
+        if res["result"] is None:
+            failures.append(f"hedge={hedge}: the round did not commit: {row}")
+        else:
+            row["values"] = value_check(res, (0, 1, 2) if hedge else (0, 1))
+            if not (row["values"]["finite"] and row["values"]["limit_used"] <= 1.0):
+                failures.append(f"hedge={hedge}: result outside AVG_TOL: {row['values']}")
+        if res["launches"]["bf16_fold_chunks"] != res["gauges"].get("folder_flushes") or \
+                not res["launches"]["bf16_fold_chunks"]:
+            failures.append(f"hedge={hedge}: K5 launches {res['launches']} != the folder's flushes {res['gauges']}")
+        arms["hedged" if hedge else "drop"] = row
+        del res
+    h, d = arms["hedged"], arms["drop"]
+    if h["hedges_issued"] < 1 or h["slots_recovered"] < 1:
+        failures.append(f"hedged arm: {h['hedges_issued']} hedges, {h['slots_recovered']} slots recovered")
+    if d["hedges_issued"] or d["slots_recovered"]:
+        failures.append(f"drop arm hedged: {d['hedges_issued']} hedges")
+    # The straggler re-encodes each refetched range on its codec: K4.
+    if h["launches"]["bf16_encode"] < d["launches"]["bf16_encode"] + 1:
+        failures.append(f"hedged arm: no K4 launch for the refetch: {h['launches']} vs drop {d['launches']}")
+    row = {"phase": "hedge", "n": n, "wire": "bf16", "budget_s": HEDGE_BUDGET_S, "weights": HEDGE_WEIGHTS,
+           "arms": arms, "launches": {k: h["launches"][k] + d["launches"][k] for k in h["launches"]}}
+    emit(row)
+    del payloads, base
+    release_card_memory()
+    if failures:
+        raise AssertionError(f"hedge phase: {failures}")
+    return row["launches"]
+
 
 VIT_BATCH = 32  # the entry script's default batch
 VIT_STEPS = 8  # the first 2 warm up; samples/s is read over the rest
@@ -3501,6 +4055,7 @@ def main() -> int:
     launches.update({k: ring_counts[k] for k in RING_KERNELS})
     life_launches = lifecycle_phase()
     protocols = {"gossip": gossip_phase(), "butterfly": butterfly_phase(), "byzantine": byzantine_phase()}
+    faults = {"zones": zones_phase(), "failover": failover_phase(), "hedge": hedge_phase()}
     mnist_phase()
     data_dir = HERE / "build" / "chip_smoke" / "data"
     data_dir.mkdir(parents=True, exist_ok=True)
@@ -3527,6 +4082,9 @@ def main() -> int:
     def mode_launches(kname):
         return {phase: counts.get(kname, 0) for phase, counts in modes.items()}
 
+    def fault_launches(kname):
+        return {phase: counts.get(kname, 0) for phase, counts in faults.items()}
+
     def model_shapes(kname):
         """K1-K3 at each model's main-path shape: error, device ms, plain,
         bound and SDPA, as at the flagship shape."""
@@ -3547,7 +4105,8 @@ def main() -> int:
             "name": kname, "id": kid, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[kname], "launches_lifecycle": life_launches[kname],
             "launches_protocols": protocol_launches(kname), "launches_models": model_launches(kname),
-            "launches_trainer_modes": mode_launches(kname), "shapes_models": model_shapes(kname), "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
+            "launches_trainer_modes": mode_launches(kname), "launches_faults": fault_launches(kname),
+            "shapes_models": model_shapes(kname), "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
             "ms_method": DEVICE_MS_METHOD, "ms_qkv_view": times["qkv"][kname]["ms"],
             "plain_ms": t[kname]["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": t[lib]["ms"], "library_ms_qkv_view": times["qkv"][lib]["ms"],
@@ -3560,6 +4119,7 @@ def main() -> int:
         "replaces": CODEC_KERNELS["bf16_encode"][0], "launches": launches["bf16_encode"],
         "launches_lifecycle": life_launches["bf16_encode"], "launches_protocols": protocol_launches("bf16_encode"),
         "launches_models": model_launches("bf16_encode"), "launches_trainer_modes": mode_launches("bf16_encode"),
+        "launches_faults": fault_launches("bf16_encode"),
         "max_abs_err": codec["encode_max_abs_err"], "n": k4["n"], "ms": k4["ms"], "ms_method": k4["ms_method"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"], "library_call": k4["library_call"],
@@ -3568,7 +4128,7 @@ def main() -> int:
         "name": "bf16_fold_chunks", "id": "K5", "route": "cuda", "source": CODEC_SOURCE,
         "replaces": CODEC_KERNELS["bf16_fold_chunks"][0], "launches": launches["bf16_fold_chunks"],
         "launches_lifecycle": life_launches["bf16_fold_chunks"], "launches_models": model_launches("bf16_fold_chunks"),
-        "launches_trainer_modes": mode_launches("bf16_fold_chunks"),
+        "launches_trainer_modes": mode_launches("bf16_fold_chunks"), "launches_faults": fault_launches("bf16_fold_chunks"),
         "max_abs_err": max(k5["max_abs_err"], codec["fold_max_abs_err"]),
         "per": f"staged flush of {k5['chunks']} chunks of 1 MiB ({k5['distinct_tiles']} tiles)",
         "ms": k5["device_ms"], "ms_method": "profiler device time of bf16_fold_kernel per flush",
@@ -3585,7 +4145,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "id": kid, "route": "cuda", "source": RING_SOURCE, "replaces": replaces,
             "launches": launches[kname], "launches_models": model_launches(kname),
-            "launches_trainer_modes": mode_launches(kname),
+            "launches_trainer_modes": mode_launches(kname), "launches_faults": fault_launches(kname),
             "max_abs_err": max(c["max_abs_err"] for rows in checks for c in rows),
             "nd": 2, "cross_card": flag["cross_card"],
             "design": "stepwise, across cards" if flag["cross_card"] else "one launch, every rank on one card",

@@ -2143,12 +2143,15 @@ class SyncAverager(AveragerBase):
         st = self._rounds.get(args["epoch"])
         if st is None:
             raise RPCError("unknown or finished round epoch")
-        if self._fence_of(args) != st.gen:
+        if st.tokens is not None and self._fence_of(args) != st.gen:
             # Epoch fencing, BEFORE parking on result_ready: a revived
             # ex-leader (this node, if it was partitioned and healed) must
             # refuse to serve its stale generation-(st.gen) result to a
             # member that has moved on — and refuse fast, not after the
-            # gather-deadline wait below.
+            # gather-deadline wait below. Unarmed (parked) rounds skip the
+            # check, as in the contribute handler: a recovery successor
+            # parks its followers' pushes and fetches before it arms at
+            # their generation.
             self._note_fence_rejected("sync.fetch", args, have_gen=st.gen)
             raise RPCError(
                 f"fencing mismatch: round epoch is at generation {st.gen}, "
@@ -2160,6 +2163,13 @@ class SyncAverager(AveragerBase):
             st.result_ready.wait(),
             timeout=self.gather_timeout + self.AGGREGATION_HEADROOM,
         )
+        if self._fence_of(args) != st.gen:
+            # A fetch parked on an unarmed round: its generation is known now.
+            self._note_fence_rejected("sync.fetch", args, have_gen=st.gen)
+            raise RPCError(
+                f"fencing mismatch: round epoch is at generation {st.gen}, "
+                f"fetch asks for {self._fence_of(args)} (leader deposed?)"
+            )
         if st.result is None:
             raise RPCError("round skipped by leader (too few contributions)")
         # result_wire is encoded ONCE when the result lands (n members
@@ -2211,6 +2221,10 @@ class SyncAverager(AveragerBase):
         encoding IS the encoding of the slice; bf16 re-encode of the
         retained f32 form is exact — no second EF staging). One shared
         encoder (agg_stream.encode_wire_elems) guards that invariant."""
+        if self.wire == "bf16" and self.mesh_codec.active:
+            # The push's own encoder: a device codec's pushes are K4's bits
+            # (canonical NaNs), which the host encoder does not reproduce.
+            return self.mesh_codec.encode_bf16(np.ascontiguousarray(buf[e0:e1], np.float32)).tobytes()
         return encode_wire_elems(self.wire, buf[e0:e1])
 
     async def _rpc_refetch(self, args: dict, payload: bytes):

@@ -29,14 +29,17 @@ on the f32 or bf16 wire, of params or (``average_what="grads"``) of every
 step's gradients, the step and wall-clock cadences, blocking or overlapped
 rounds, the outer Nesterov optimizer over params rounds, multi-step calls,
 ``.npz`` data with a held-out eval stream, the robust estimators, the
-resilience layer and controller, a local data-parallel mesh, the
-coordinator and control plane, checkpoints, state sync and the reference's
-fault-injection hooks (read from the environment, test-only):
+resilience layer and controller, rotating group schedules
+(``group_size``, ``group_rotation_s``) and their zone hierarchy (``zone``,
+``cross_zone_every_k``), a local data-parallel mesh, the coordinator and
+control plane, checkpoints, state sync and the reference's fault-injection
+hooks (read from the environment, test-only):
 ``DVC_CHAOS_CONTRIB_SCALE=<x>`` contributes the real tree scaled by x;
 ``DVC_STEP_DELAY_MS=<ms>`` sleeps that long after each step;
 ``DVC_CHAOS_STATE_POISON=<lie>,<scale>`` serves state sync at step + lie
 with the tree scaled; ``DVC_CLOCK_SKEW_S=<s>`` skews the local clock under
-the wall-clock cadence. The other wires, group schedules, zones, sharding,
+the wall-clock cadence; the averager's ``DVC_CHAOS_LEADER_DIE_PHASE=<phase>``
+SIGKILLs a sync leader at that round phase. The other wires, zone sharding,
 FSDP and sequence parallelism come with later slices; ``VolunteerConfig``
 raises ``NotImplementedError`` when one of them is set away from its
 default.
@@ -56,10 +59,12 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 
 from distributedvolunteercomputing_tpu_torch.models import get_model
+from distributedvolunteercomputing_tpu_torch.ops import flash_attention
 from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mesh_codec_mod
 from distributedvolunteercomputing_tpu_torch.parallel.mesh import Mesh, make_mesh, parse_mesh_spec
 from distributedvolunteercomputing_tpu_torch.swarm.averager import make_averager
 from distributedvolunteercomputing_tpu_torch.swarm.dht import DHTNode
+from distributedvolunteercomputing_tpu_torch.swarm.matchmaking import GroupSchedule
 from distributedvolunteercomputing_tpu_torch.swarm.membership import SwarmMembership
 from distributedvolunteercomputing_tpu_torch.swarm.state_sync import StateSyncService
 from distributedvolunteercomputing_tpu_torch.swarm.telemetry import Telemetry
@@ -75,8 +80,8 @@ PORTED = (
     "averaging none|sync|gossip|butterfly|byzantine, wire f32|bf16, average_what "
     "params|grads, the step and wall-clock cadences, overlap, steps_per_call, the outer "
     "optimizer, .npz data, eval, robust methods, the resilience layer and controller, "
-    "a dp mesh, the coordinator and control plane, checkpoints, state sync, telemetry, "
-    "health probe and watchdog"
+    "group schedules and zones, a dp mesh, the coordinator and control plane, "
+    "checkpoints, state sync, telemetry, health probe and watchdog"
 )
 
 # The wall-clock cadence AUTO resolves to for butterfly params-mode swarms.
@@ -89,10 +94,6 @@ LATER_SLICES: Dict[str, tuple] = {
     "topk_warmup_rounds": (0, "the topk wire"),
     "powersgd_rank": (4, "the powersgd wire"),
     "allow_unrobust_topk": (False, "the topk wire"),
-    "group_size": (0, "group schedules"),
-    "group_rotation_s": (0.0, "group schedules"),
-    "zone": ("", "zones"),
-    "cross_zone_every_k": (0, "zones"),
     "zone_shards": (0, "zone sharding"),
     "fsdp": (False, "fsdp"),
     "seq_sharded": (False, "sequence parallelism"),
@@ -235,6 +236,41 @@ class VolunteerConfig:
                 raise ValueError("--average-interval-s requires an averaging mode")
         if self.phi_threshold <= 0:
             raise ValueError(f"phi_threshold must be > 0, got {self.phi_threshold}")
+        if self.group_rotation_s < 0:
+            raise ValueError(f"group_rotation_s must be >= 0, got {self.group_rotation_s}")
+        if self.cross_zone_every_k < 0:
+            raise ValueError(f"cross_zone_every_k must be >= 0 (0 = flat), got {self.cross_zone_every_k}")
+        if self.cross_zone_every_k and not self.group_size:
+            # The hierarchy layers the group schedule's grid: without one
+            # the flag would do nothing for the whole run.
+            raise ValueError(
+                "--cross-zone-every-k requires --group-size (the hierarchy "
+                "schedules the multi-group grid; single-group swarms have "
+                "no grid to layer)"
+            )
+        if self.group_size:
+            # Round-structured gather modes only: gossip is pairwise and
+            # "none" does not average.
+            if self.group_size < 2:
+                raise ValueError(f"group_size must be >= 2 (or 0 = off), got {self.group_size}")
+            if self.averaging not in ("sync", "byzantine", "butterfly"):
+                raise ValueError(
+                    "--group-size requires --averaging sync, byzantine, or "
+                    "butterfly (gossip is pairwise — there is no round-"
+                    "structured group to schedule)"
+                )
+            if self.group_size < self.min_group:
+                raise ValueError(
+                    f"group_size {self.group_size} < min_group {self.min_group}: "
+                    "every scheduled group would be refused at formation"
+                )
+            if self.group_size > self.max_group:
+                raise ValueError(
+                    f"group_size {self.group_size} > max_group {self.max_group}: the "
+                    "leader freezes at max_group, so the surplus members of every "
+                    "scheduled group would join-retry until the deadline and skip "
+                    "the round"
+                )
         for name, (default, what) in LATER_SLICES.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -321,7 +357,7 @@ class Volunteer:
         from distributedvolunteercomputing_tpu_torch.utils.logging import current_log_context, set_log_fields
 
         if "peer" not in current_log_context():
-            set_log_fields(peer=cfg.peer_id, zone=None)
+            set_log_fields(peer=cfg.peer_id, zone=cfg.zone or None)
         self.transport = Transport(
             cfg.host, cfg.port, advertise_host=cfg.advertise_host, secret=read_secret(cfg.secret_file),
         )
@@ -409,10 +445,15 @@ class Volunteer:
         # heartbeat distributions.
         self._build_resilience_layer()
         namespace = f"{cfg.model}/{cfg.average_what}"
+        extra_info = {"model": cfg.model, "avg_ns": namespace}
+        if cfg.zone:
+            # The hierarchical schedule's locality advertisement; absent on
+            # unzoned volunteers, so "" never counts as a zone.
+            extra_info["zone"] = cfg.zone
         self.membership = SwarmMembership(
             self.dht, cfg.peer_id, ttl=cfg.heartbeat_ttl,
             failure_detector=self.failure_detector,
-            extra_info={"model": cfg.model, "avg_ns": namespace},
+            extra_info=extra_info,
             bandwidth_source=self.transport.bandwidth_advertisement,
             # Announce + report + peers snapshot coalesce into one
             # cp.exchange per heartbeat while a replica is reachable.
@@ -448,6 +489,16 @@ class Volunteer:
                 hedge=cfg.hedge, tail_redundancy_frac=cfg.tail_redundancy_frac,
                 namespace=namespace,
             )
+            if cfg.group_size:
+                # Rotations on the consensus clock when there is one: every
+                # member of a prospective group must land in the same window.
+                kw["group_schedule"] = GroupSchedule(
+                    target_size=cfg.group_size,
+                    rotation_s=cfg.group_rotation_s or (cfg.average_interval_s or 15.0),
+                    clock=self.clocksync.now if self.clocksync is not None else time.time,
+                    min_size=cfg.min_group,
+                    cross_zone_every_k=cfg.cross_zone_every_k,
+                )
             if cfg.averaging == "byzantine" and cfg.method != "mean":
                 kw["method"] = cfg.method
             if cfg.method_kw:
@@ -759,6 +810,8 @@ class Volunteer:
         self.summary = await asyncio.to_thread(self._train_blocking)
         if self.averager is not None:
             self.summary.update(self.averager.stats())
+        # The process's K1-K3 launches (the codec's K4/K5 are in mesh_codec).
+        self.summary["flash_launches"] = dict(flash_attention.LAUNCHES)
         self.summary["wan_bytes_sent"] = self.transport.bytes_sent
         self.summary["wan_bytes_received"] = self.transport.bytes_received
         self.summary["wan_rpcs"] = self.transport.rpcs_sent

@@ -22,6 +22,10 @@ byzantine); ``--outer-optimizer nesterov`` puts a DiLoCo-style Nesterov step
 over params rounds; ``--data x.npz`` trains on a file (``experiments/
 make_npz.py`` writes one) with ``--eval-every`` / ``--eval-batches`` for a
 held-out eval stream; ``--steps-per-call N`` fuses up to N steps per call.
+``--group-size N`` (sync, byzantine, butterfly) splits the swarm into
+rotating groups of about N (``--group-rotation-s`` the rotation), and
+``--zone Z --cross-zone-every-k K`` keeps every group inside one zone except
+on every K-th rotation.
 Without ``--model`` it trains the reference's default, mnist_mlp
 (capability config 1); ``--list-models`` prints the ported zoo.
 
@@ -44,10 +48,6 @@ LATER_FLAGS = {
     "topk_warmup_rounds": "the topk wire",
     "psgd_rank": "the powersgd wire",
     "allow_unrobust_topk": "the topk wire",
-    "group_size": "group schedules",
-    "group_rotation_s": "group schedules",
-    "zone": "zones",
-    "cross_zone_every_k": "zones",
     "zone_shards": "zone sharding",
     "fsdp": "fsdp",
     "seq_sharded": "sequence parallelism",
@@ -386,6 +386,10 @@ def main() -> None:
             max_staleness=args.max_staleness,
             min_group=args.min_group,
             max_group=args.max_group,
+            group_size=args.group_size,
+            group_rotation_s=args.group_rotation_s,
+            zone=args.zone,
+            cross_zone_every_k=args.cross_zone_every_k,
             batch_size=args.batch_size,
             accum_steps=args.accum_steps,
             mesh=args.mesh,

@@ -90,6 +90,45 @@ TRAINER_SLICE = (
 )
 
 
+# The modules of the faults-and-zones slice (leader failover, hedged tile
+# recovery, zoned group schedules).
+FAULTS_SLICE = (
+    "distributedvolunteercomputing_tpu_torch.swarm.chaos",
+    "distributedvolunteercomputing_tpu_torch.swarm.matchmaking",
+    "distributedvolunteercomputing_tpu_torch.swarm.averager",
+    "distributedvolunteercomputing_tpu_torch.swarm.agg_stream",
+    "distributedvolunteercomputing_tpu_torch.swarm.volunteer",
+)
+FAULTS_SCRIPTS = [REPO / "experiments" / "torch_chaos_soak.py"]
+
+
+def test_scans_cover_the_faults_slice():
+    assert set(FAULTS_SLICE) <= {m for m, _ in _port_modules()}
+    assert all(p.exists() for p in FAULTS_SCRIPTS)
+
+
+def test_faults_scripts_load_no_jax():
+    # A subprocess: the slice's modules, then each new script's own imports,
+    # then the chaos soak's campaigns (the reference script's text on the port).
+    code = (
+        "import importlib, json, runpy, sys\n"
+        f"for m in {list(FAULTS_SLICE)!r}: importlib.import_module(m)\n"
+        f"ns = [runpy.run_path(s) for s in {[str(p) for p in FAULTS_SCRIPTS]!r}]\n"
+        "campaigns = ns[0]['load_campaigns']()\n"
+        "from distributedvolunteercomputing_tpu_torch.swarm.averager import SyncAverager\n"
+        "assert issubclass(campaigns['SyncAverager'], SyncAverager) and callable(campaigns['tail_campaign'])\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=120, check=True,
+    )
+    leaked = [m for m in json.loads(out.stdout.strip().splitlines()[-1]) if _forbidden(m)]
+    assert not leaked, f"faults slice pulled in {leaked[:10]}"
+
+
 def test_scans_cover_the_trainer_slice():
     assert set(TRAINER_SLICE) <= {m for m, _ in _port_modules()}
 
@@ -157,7 +196,7 @@ def test_import_loads_no_jax():
 SCRIPTS = [REPO / "chip_smoke.py"] + ENTRY_SCRIPTS + [REPO / "experiments" / f for f in (
     "torch_step_profile.py", "torch_ring_cards.py", "torch_dp_trace.py", "torch_attention_shapes.py",
     "torch_dq_variants.py", "torch_codec_variants.py", "torch_avg_ab.py", "torch_departed_member.py",
-    "torch_ring_variants.py", "torch_trainer_modes.py")]
+    "torch_ring_variants.py", "torch_trainer_modes.py")] + FAULTS_SCRIPTS
 
 
 @pytest.mark.parametrize("path", SCRIPTS + [p for _, p in _port_modules()], ids=lambda p: p.name)

@@ -329,6 +329,31 @@ def test_unported_config_options_raise(field, value):
         VolunteerConfig(**{field: value})
 
 
+# The reference's config checks of group schedules and zones: the port
+# raises the same ValueError for each.
+GROUP_CONFIG_ERRORS = {
+    "negative_rotation": (dict(averaging="sync", group_size=2, group_rotation_s=-1.0), "group_rotation_s must be"),
+    "negative_k": (dict(averaging="sync", group_size=2, cross_zone_every_k=-1), "cross_zone_every_k must be"),
+    "k_without_groups": (dict(averaging="sync", cross_zone_every_k=2), "requires --group-size"),
+    "group_of_one": (dict(averaging="sync", group_size=1), "group_size must be >= 2"),
+    "gossip_groups": (dict(averaging="gossip", group_size=2), "requires --averaging sync"),
+    "below_min_group": (dict(averaging="sync", group_size=2, min_group=3), "< min_group"),
+    "above_max_group": (dict(averaging="sync", group_size=8, max_group=4), "> max_group"),
+}
+
+
+@pytest.mark.parametrize("case", list(GROUP_CONFIG_ERRORS))
+def test_group_config_errors_match_reference(case):
+    from distributedvolunteercomputing_tpu.swarm.volunteer import VolunteerConfig as JaxVolunteerConfig
+
+    fields, match = GROUP_CONFIG_ERRORS[case]
+    with pytest.raises(ValueError, match=match) as want:
+        JaxVolunteerConfig(**fields)
+    with pytest.raises(ValueError, match=match) as got:
+        VolunteerConfig(**fields)
+    assert str(got.value) == str(want.value)
+
+
 def _later_flag_argv():
     """One argv per flag of a later slice, set away from its default."""
     import runpy
@@ -381,6 +406,14 @@ PORTED_OPTIONS = {
     "gossip": (dict(averaging="gossip"), ["--averaging", "gossip"]),
     "butterfly": (dict(averaging="butterfly"), ["--averaging", "butterfly"]),
     "byzantine": (dict(averaging="byzantine"), ["--averaging", "byzantine"]),
+    # Group schedules and zones: each replaces its refusal one for one.
+    "group_size": (dict(averaging="sync", group_size=2), ["--averaging", "sync", "--group-size", "2"]),
+    "group_rotation_s": (dict(averaging="sync", group_size=2, group_rotation_s=7.0),
+                         ["--averaging", "sync", "--group-size", "2", "--group-rotation-s", "7"]),
+    "zone": (dict(averaging="sync", zone="a"), ["--averaging", "sync", "--zone", "a"]),
+    "cross_zone_every_k": (dict(averaging="sync", group_size=2, zone="a", cross_zone_every_k=2),
+                           ["--averaging", "sync", "--group-size", "2", "--zone", "a",
+                            "--cross-zone-every-k", "2"]),
 }
 
 
@@ -418,6 +451,21 @@ def _check_reached(case, vol):
         else:
             assert isinstance(vol.controller, SwarmController) and avg.controller is vol.controller
             assert "controller" in vol._build_report()
+    elif case in ("group_size", "group_rotation_s", "zone", "cross_zone_every_k"):
+        sched = avg.group_schedule
+        zone = "" if case in ("group_size", "group_rotation_s") else "a"
+        assert vol.membership.extra_info.get("zone") == (zone or None)
+        assert avg.zone == zone
+        if case == "zone":
+            assert sched is None
+        else:
+            from distributedvolunteercomputing_tpu_torch.swarm.matchmaking import GroupSchedule
+
+            assert isinstance(sched, GroupSchedule) and (sched.target_size, sched.min_size) == (2, 2)
+            # The rotation falls back to 15 s without a wall-clock cadence.
+            assert sched.rotation_s == (7.0 if case == "group_rotation_s" else 15.0)
+            assert sched.cross_zone_every_k == (2 if case == "cross_zone_every_k" else 0)
+            assert sched.clock is time.time and vol.clocksync is None
     elif case in ("average_interval_s", "butterfly"):
         interval = 5.0 if case == "average_interval_s" else vol_mod.DEFAULT_BUTTERFLY_INTERVAL_S
         assert vol.cfg.average_interval_s == trainer.average_interval_s == interval

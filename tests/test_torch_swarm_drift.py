@@ -40,6 +40,7 @@ COPIED = [
     "swarm/failure_detector.py",
     "swarm/resilience.py",
     "swarm/clocksync.py",
+    "swarm/chaos.py",
 ]
 
 # module -> [(reason, reference text, port text)]
@@ -162,6 +163,73 @@ manager raise at construction until their slices arrive.
             """        if {p for p, _ in st.contribs} >= st.expected:
 """,
             """        if {p for p, t in st.contribs if (p, t) not in st.feeding} >= st.expected:
+""",
+        ),
+        (
+            "recovery fetch fix (1/2): a sync.fetch that reaches a recovery "
+            "successor before it arms finds the followers' parked round state "
+            "at generation 0 and was refused as stale, so those followers "
+            "failed a round the successor committed (the port's chaos soak: "
+            "0.0-0.6 of kill rounds recovered on the bf16 wire against the "
+            "95% bar). An unarmed round skips the fence, as the contribute "
+            "handler's already does",
+            """        if self._fence_of(args) != st.gen:
+            # Epoch fencing, BEFORE parking on result_ready: a revived
+            # ex-leader (this node, if it was partitioned and healed) must
+            # refuse to serve its stale generation-(st.gen) result to a
+            # member that has moved on — and refuse fast, not after the
+            # gather-deadline wait below.
+            self._note_fence_rejected("sync.fetch", args, have_gen=st.gen)
+""",
+            """        if st.tokens is not None and self._fence_of(args) != st.gen:
+            # Epoch fencing, BEFORE parking on result_ready: a revived
+            # ex-leader (this node, if it was partitioned and healed) must
+            # refuse to serve its stale generation-(st.gen) result to a
+            # member that has moved on — and refuse fast, not after the
+            # gather-deadline wait below. Unarmed (parked) rounds skip the
+            # check, as in the contribute handler: a recovery successor
+            # parks its followers' pushes and fetches before it arms at
+            # their generation.
+            self._note_fence_rejected("sync.fetch", args, have_gen=st.gen)
+""",
+        ),
+        (
+            "recovery fetch fix (2/2): the fence is checked again once the "
+            "parked round has armed and its result is ready",
+            """            timeout=self.gather_timeout + self.AGGREGATION_HEADROOM,
+        )
+        if st.result is None:
+            raise RPCError("round skipped by leader (too few contributions)")
+""",
+            """            timeout=self.gather_timeout + self.AGGREGATION_HEADROOM,
+        )
+        if self._fence_of(args) != st.gen:
+            # A fetch parked on an unarmed round: its generation is known now.
+            self._note_fence_rejected("sync.fetch", args, have_gen=st.gen)
+            raise RPCError(
+                f"fencing mismatch: round epoch is at generation {st.gen}, "
+                f"fetch asks for {self._fence_of(args)} (leader deposed?)"
+            )
+        if st.result is None:
+            raise RPCError("round skipped by leader (too few contributions)")
+""",
+        ),
+        (
+            "re-encode fix: a contributor's refetched ranges, redundancy "
+            "shares and XOR sidecars were encoded by the host's "
+            "native.f32_to_bf16 while its push on a device codec is K4's: the "
+            "two differ on NaN payload bits, so a hedged range was not the "
+            "bytes the push carried, and the refetch bypassed K4. On a device "
+            "codec the re-encode is the codec's own",
+            """        encoder (agg_stream.encode_wire_elems) guards that invariant.\"\"\"
+        return encode_wire_elems(self.wire, buf[e0:e1])
+""",
+            """        encoder (agg_stream.encode_wire_elems) guards that invariant.\"\"\"
+        if self.wire == "bf16" and self.mesh_codec.active:
+            # The push's own encoder: a device codec's pushes are K4's bits
+            # (canonical NaNs), which the host encoder does not reproduce.
+            return self.mesh_codec.encode_bf16(np.ascontiguousarray(buf[e0:e1], np.float32)).tobytes()
+        return encode_wire_elems(self.wire, buf[e0:e1])
 """,
         ),
         (

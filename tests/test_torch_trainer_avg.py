@@ -132,7 +132,7 @@ def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(TypeError):
         Trainer(bundle, batch_size=2, device="cpu", seq_sharded=True)
     with pytest.raises(NotImplementedError, match="not ported"):
-        VolunteerConfig(averaging="sync", group_size=4)
+        VolunteerConfig(averaging="sync", group_size=2, zone="a", zone_shards=2)
     with pytest.raises(NotImplementedError, match="not ported"):
         VolunteerConfig(averaging="sync", wire="q8")
 
