@@ -92,8 +92,8 @@ Phases, each printing one JSON line:
             every averaged-gradient leaf, the loss and every param leaf's
             update after the step (``PARITY_TOL["dp"]``), identical replicas;
             then the dp=2 trainer's samples/s in bf16;
-9. ring_averaging  phase 6 again with both volunteers on a dp=2 mesh and
-            ``mesh_collective="ring"``: the leader's streamed rounds fold on
+9. ring_averaging  phase 6 again (at ``DEPTH_CUT``) with both volunteers
+            on a dp=2 mesh and ``mesh_collective="ring"``: the leader's streamed rounds fold on
             K6 and gather on K7, no K5 launch, K4 once per rank per encode,
             K6 = one launch per ring flush and K7 = one per ring result with
             both ranks on the one card (nd·(cards in use) and nd·(nd - 1)
@@ -196,13 +196,14 @@ The trainer's other modes (run after phases 4, 6, 6, 14 and 16):
             ``evaluate`` on the held-out stream (K1 12 per batch under
             no_grad, no K2 / K3) and one batch's eval loss through the
             kernels against the plain core (``PARITY_TOL["eval"]``).
-20. grad_averaging  phase 6 in gradient mode (``average_what="grads"``): a
+20. grad_averaging  phase 6 at ``DEPTH_CUT`` in gradient mode
+            (``average_what="grads"``): a
             round every step for ``GRAD_STEPS`` steps, each contribution one
             batch of weight; phase 6's checks with every round's values
             within ``AVG_TOL``, every round committed, K1-K3 per step, and
             the two volunteers' params within ``adam_drift_bound``
             (``GRAD_EPS``).
-21. outer_sync  phase 6 with the outer Nesterov step (``OUTER``: lr 0.7,
+21. outer_sync  phase 6 at ``DEPTH_CUT`` with the outer Nesterov step (``OUTER``: lr 0.7,
             momentum 0.9) until ``OUTER_COMMITS`` rounds committed on each:
             the merged params on the card bit-equal to a numpy replay of
             the recorded averages (round 1 the plain average), and a
@@ -244,12 +245,44 @@ The volunteer under faults and on a zoned schedule (run after phase 13):
             ``hedge=False`` of the other two; round seconds and lost mass of
             both arms.
 
-Then one line listing every kernel (``launches_lifecycle``: the counts of
+The compressed wires and zone sharding (run after phase 26), gpt2_small at
+full width and ``DEPTH_CUT``, batch 8:
+27. wires   two volunteers per arm in blocking sync rounds (``WIRE_ARMS``):
+            q8 averaging params every 2 steps, topk (1%) gradients every
+            step; at least 2 committed rounds each; every contribution's
+            wire bytes those of the averaged subtree's element count; each
+            round within ``WIRE_TOL`` (leader against the weighted mean of
+            the contributions as peers decode them, member against the
+            leader); on topk the error-feedback residual bit-equal to ``x -
+            topk_decode(topk_encode(x))`` and banked on commit; K1-K3 per
+            step, no K4 or K5.
+28. psgd_byzantine  config 8's PowerSGD arm: phase 13's swarm in gradient
+            mode on ``--wire powersgd --psgd-rank 4``, ``trim`` 1, the
+            attacker at ×−3, each honest volunteer on a codec of its own; in
+            each round all three fed, the aggregate bit-equal to the median
+            of the three decoded rows, the policies' rejections exactly the
+            rows past the reference's bar, both honest results bit-equal to
+            it; each honest codec's power iteration and reconstructions run
+            on the card (its ``low_rank_calls``); no K4 or K5; per round the
+            attacker's distance ratio, k and the honest cosine.
+29. sign_byzantine  config 8's sign arm, the same on ``--wire sign``
+            (three volunteers, no kill: PERF.md section 4).
+30. zone_shards  four volunteers in zones a, a, b, b with ``zone_shards``
+            2, groups of 2, every rotation across zones: maps agree within
+            each zone, each volunteer owns and advertises its HRW shard,
+            every round's group id carries its members' shard, values within
+            ``AVG_TOL``, K4 and K5 as the rounds imply; then a zone-a holder
+            leaves, its partner re-shards and recovers (``shard_recovered``
+            with its source and latency), and zone b's shard snapshots
+            assemble bit-equal to the held slices.
+
+Each phase also prints ``{"phase_wall": name, "seconds": s, "ok": bool}``
+when it ends. Then one line listing every kernel (``launches_lifecycle``: the counts of
 phase 10, ``launches_protocols`` those of phases 11-13, ``launches_models``
 those of phases 15-18, ``launches_trainer_modes`` those of phases 19-23,
 ``launches_faults`` those of phases 24-26 (failover: the survivors'
-processes' counts from their summaries),
-``shapes_models`` K1-K3 at the models' shapes),
+processes' counts from their summaries), ``launches_wires`` those of
+phases 27-30, ``shapes_models`` K1-K3 at the models' shapes),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script
 exits non-zero and prints no ``ok`` line. It needs one card and no network.
@@ -1234,7 +1267,7 @@ class ProtoRecorder:
 def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging", model: str = "gpt2_small",
                     batch_size: int = 8, every: int = AVG_EVERY, lr=None, extra=None, commits=AVG_COMMITS,
                     max_steps: int = AVG_MAX_STEPS, keep: int = 2, hooks=None, all_rounds: bool = False,
-                    check_flash: bool = False) -> dict:
+                    check_flash: bool = False, overrides=None) -> dict:
     """Two full-width volunteers averaging in blocking sync rounds (see the
     module doc): gpt2_small at batch 8 every ``AVG_EVERY`` steps by
     default. With ``mesh`` (a port ``Mesh``) each volunteer trains
@@ -1248,7 +1281,8 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
     stop) add a phase's own checks; ``all_rounds`` checks the values of
     every round both recorded, not one streamed round; ``check_flash``
     holds K1-K3 to their launches per step of the steps trained and returns
-    their counts too."""
+    their counts too; ``overrides`` are the model's registry overrides
+    (``DEPTH_CUT``: fewer layers, every width kept)."""
     from distributedvolunteercomputing_tpu_torch import native
     from distributedvolunteercomputing_tpu_torch.ops import mesh_collective as mcol
     from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
@@ -1284,6 +1318,7 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
         base = dict(model=model, batch_size=batch_size, averaging="sync", wire="bf16",
                     average_every=every, overlap=AVG_OVERLAP, steps=max_steps,
                     mesh=mesh if mesh is not None else "", mesh_collective=collective,
+                    model_overrides=dict(overrides or {}),
                     **({"lr": lr} if lr is not None else {}), **(extra or {}))
         paths = [out_dir / f"{phase}_volunteer{i}.jsonl" for i in range(2)]
         for p in paths:
@@ -1340,7 +1375,8 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
     )
     folder = "ring" if ring else "staged"
     row = {
-        "phase": phase, "model": model, "batch_size": batch_size, "lr": lr, "max_steps": max_steps,
+        "phase": phase, "model": model, "overrides": overrides, "batch_size": batch_size, "lr": lr,
+        "max_steps": max_steps,
         "extra": {k: (v if k != "data_path" else Path(v).name) for k, v in (extra or {}).items()},
         "mesh": repr(mesh) if mesh is not None else None, "collective": collective,
         "commits": commits, "steps": [s["steps"] for s in summaries],
@@ -1382,7 +1418,7 @@ def averaging_phase(mesh=None, collective: str = "auto", phase: str = "averaging
     if not all(losses) or not all(math.isfinite(x) for ls in losses for x in ls):
         failures.append("missing or non-finite losses")
     if check_flash:
-        per_step = flash_per_step(model)
+        per_step = flash_per_step(model, overrides)
         row["flash_expected"] = {k: n * sum(s["steps"] for s in summaries) for k, n in zip(KERNELS, per_step)}
         if {k: launches[k] for k in KERNELS} != row["flash_expected"]:
             failures.append(f"K1-K3 launches {[launches[k] for k in KERNELS]} != {row['flash_expected']}")
@@ -1807,20 +1843,21 @@ class OuterHooks:
 
 
 def grad_averaging_phase() -> dict:
-    """Two gpt2_small volunteers in gradient mode: a sync round on the bf16
-    wire every step for ``GRAD_STEPS`` steps (phase 6's checks on every
-    round, K1-K3 per step, ``GradHooks``)."""
+    """Two gpt2_small volunteers at ``DEPTH_CUT`` in gradient mode: a sync
+    round on the bf16 wire every step for ``GRAD_STEPS`` steps (phase 6's
+    checks on every round, K1-K3 per step, ``GradHooks``)."""
     return averaging_phase(phase="grad_averaging", every=1, extra={"average_what": "grads"}, commits=None,
                            max_steps=GRAD_STEPS, keep=GRAD_STEPS, hooks=GradHooks(), all_rounds=True,
-                           check_flash=True)
+                           check_flash=True, overrides=DEPTH_CUT)
 
 
 def outer_sync_phase() -> dict:
-    """Two gpt2_small volunteers in sync rounds every ``AVG_EVERY`` steps with
-    the outer Nesterov step (``OUTER``), until ``OUTER_COMMITS`` rounds have
-    committed on each (phase 6's checks, ``OuterHooks``)."""
+    """Two gpt2_small volunteers at ``DEPTH_CUT`` in sync rounds every
+    ``AVG_EVERY`` steps with the outer Nesterov step (``OUTER``), until
+    ``OUTER_COMMITS`` rounds have committed on each (phase 6's checks,
+    ``OuterHooks``)."""
     return averaging_phase(phase="outer_sync", extra=dict(OUTER), commits=OUTER_COMMITS, hooks=OuterHooks(),
-                           check_flash=True)
+                           check_flash=True, overrides=DEPTH_CUT)
 
 
 def mnist_file_phase(out_dir: Path) -> dict:
@@ -2001,14 +2038,15 @@ def lifecycle_phase() -> dict:
 
     def volunteer_argv(metrics):
         return [HERE / "run_volunteer_torch.py", "--model", "gpt2_small", "--batch-size", "8",
+                *[a for k, v in DEPTH_CUT.items() for a in ("--model-override", f"{k}={v}")],
                 "--averaging", "sync", "--wire", "bf16", "--average-every", LIFE_EVERY, "--no-overlap",
                 "--coordinator", addr, "--checkpoint-dir", ckpt_a, "--checkpoint-every", LIFE_CKPT_EVERY,
                 "--metrics", metrics, "--peer-id", "volA", "--seed", "1", "--steps", 100000]
 
     def in_process(peer, seed):
         return vol_mod.Volunteer(vol_mod.VolunteerConfig(
-            peer_id=peer, seed=seed, coordinator=addr, model="gpt2_small", batch_size=8, averaging="sync",
-            wire="bf16", average_every=LIFE_EVERY, overlap=False, steps=100000,
+            peer_id=peer, seed=seed, coordinator=addr, model="gpt2_small", model_overrides=dict(DEPTH_CUT),
+            batch_size=8, averaging="sync", wire="bf16", average_every=LIFE_EVERY, overlap=False, steps=100000,
             metrics_path=str(paths[peer[-1]]),
         ))
 
@@ -2185,14 +2223,16 @@ def lifecycle_phase() -> dict:
 
     losses = {k: [r["loss"] for r in v if "loss" in r] for k, v in recs.items()}
     ran = {k: len(losses[k]) for k in ("B", "C")}
-    expect_flash = {"flash_fwd": 24 * sum(ran.values()), "flash_dq": 12 * sum(ran.values()),
-                    "flash_dkv": 12 * sum(ran.values())}
+    k1, k2, k3 = flash_per_step("gpt2_small", DEPTH_CUT)
+    expect_flash = {"flash_fwd": k1 * sum(ran.values()), "flash_dq": k2 * sum(ran.values()),
+                    "flash_dkv": k3 * sum(ran.values())}
     agg = {k: s.get("aggregation", {}) for k, s in res["summaries"].items()}
     k5_expected = sum(a.get("folder_flushes", 0) for a in agg.values())
     pulls = {"C": [r for r in recs["C"] if r.get("event") == "state_pull"], "A": [res["a_pull"]]}
     status = res["status"]
     row = {
-        "phase": "lifecycle", "model": "gpt2_small", "batch_size": 8, "wire": "bf16", "overlap": False,
+        "phase": "lifecycle", "model": "gpt2_small", "overrides": DEPTH_CUT, "batch_size": 8, "wire": "bf16",
+        "overlap": False,
         "average_every": LIFE_EVERY, "checkpoint_every": LIFE_CKPT_EVERY, "commits": LIFE_COMMITS,
         "run_s": res["run_s"],
         "rounds_ok": {k: committed_rounds(v) for k, v in recs.items()},
@@ -2235,6 +2275,16 @@ def lifecycle_phase() -> dict:
 # protocols: gossip, butterfly on the wall-clock cadence, Byzantine rounds
 # ---------------------------------------------------------------------------
 
+# The script's time limit (1200 s) holds every phase: the phases that put
+# several volunteers on this process's event loop train gpt2_small (and
+# config 3's BERT-base) at their published widths with the depth cut to this
+# many layers (PERF.md section 4). At 12 layers a round moves 249 MB per
+# contribution through that one loop, and such phases fell out of step and
+# waited out their gather ceilings (60-150 s a phase, run to run); cut, their
+# times held from run to run. Their checks are unchanged; K1-K3 are counted
+# per step of the cut model. Phases 6 (averaging), 25 (failover) and 26
+# (hedge) keep the full model.
+DEPTH_CUT = {"n_layers": 2}
 PROTO_EVERY = 2  # the step cadence of the gossip and Byzantine phases
 PROTO_MAX_STEPS = 400  # cap on each trainer's steps; the phases end on their round counts
 PROTO_WAIT_S = 300.0  # cap on each phase's training, and on the attacker's start
@@ -2351,10 +2401,11 @@ def flash_per_step(model: str, overrides=None) -> tuple:
 
 
 def proto_checks(what, vols, summaries, paths, launches, failures, model: str = "gpt2_small",
-                 overrides=None) -> dict:
+                 overrides=None, codec_ops: bool = True) -> dict:
     """Finite losses; K1-K3 launches per step of this process's volunteers
     as ``flash_per_step`` (24 / 12 / 12 for gpt2_small); every codec op on
-    the card."""
+    the card, and (``codec_ops``) some op run there: the q8 and topk wires'
+    rounds run none (their codecs and the sync mean are the host's)."""
     losses = [[r["loss"] for r in read_jsonl(p) if "loss" in r] for p in paths]
     steps = sum(len(ls) for ls in losses)
     k1, k2, k3 = flash_per_step(model, overrides)
@@ -2364,7 +2415,7 @@ def proto_checks(what, vols, summaries, paths, launches, failures, model: str = 
         failures.append(f"{what}: missing or non-finite losses")
     if {k: launches[k] for k in expect_flash} != expect_flash:
         failures.append(f"{what}: K1-K3 launches {launches} != {expect_flash} for {steps} steps")
-    if codec["backend"] != "device" or codec["ops_host"] != 0 or codec["ops_mesh"] < 1:
+    if codec["backend"] != "device" or codec["ops_host"] != 0 or (codec_ops and codec["ops_mesh"] < 1):
         failures.append(f"{what}: codec ops off the card: {codec}")
     return {"steps_run": [len(ls) for ls in losses], "losses": losses,
             "final_loss": [s["final_loss"] for s in summaries], "mesh_codec": codec}
@@ -2442,7 +2493,8 @@ def gossip_phase(model: str = "gpt2_small", n: int = 2, batch_size: int = 8, pha
             await asyncio.gather(*(v.stop() for v in vols))
 
     vols, paths, recs, summaries, run_s, launches = asyncio.run(run())
-    row = {"phase": phase, "model": model, "volunteers": n, "batch_size": batch_size, "wire": "bf16",
+    row = {"phase": phase, "model": model, "overrides": kw.get("model_overrides"), "volunteers": n,
+           "batch_size": batch_size, "wire": "bf16",
            "average_every": PROTO_EVERY, "gather_timeout": PROTO_GATHER_S,
            "run_s": run_s, "exchanges_ok": exchanges, "rounds_ok": [s["rounds_ok"] for s in summaries],
            "rounds_skipped": [s["rounds_skipped"] for s in summaries],
@@ -2516,7 +2568,7 @@ def butterfly_phase() -> dict:
     async def run():
         vols, paths = await start_volunteers(
             BFLY_N, out_dir, "butterfly", averaging="butterfly", average_interval_s=BFLY_INTERVAL_S,
-            min_group=BFLY_N, max_group=BFLY_N, join_timeout=4.0,
+            min_group=BFLY_N, max_group=BFLY_N, join_timeout=4.0, model_overrides=dict(DEPTH_CUT),
         )
         try:
             recs = [instrument(v, i) for i, v in enumerate(vols)]
@@ -2529,7 +2581,8 @@ def butterfly_phase() -> dict:
 
     vols, paths, recs, summaries, run_s, launches, offsets = asyncio.run(run())
     full = [r.full_rounds(BFLY_N, 2) for r in recs]
-    row = {"phase": "butterfly", "model": "gpt2_small", "batch_size": 8, "wire": "bf16", "volunteers": BFLY_N,
+    row = {"phase": "butterfly", "model": "gpt2_small", "overrides": DEPTH_CUT, "batch_size": 8, "wire": "bf16",
+           "volunteers": BFLY_N,
            "average_interval_s": [v.cfg.average_interval_s for v in vols], "clock_offsets_s": offsets,
            "gather_timeout": PROTO_GATHER_S, "stage_timeout": BFLY_STAGE_S,
            "run_s": run_s, "rounds_ok": [s["rounds_ok"] for s in summaries],
@@ -2537,7 +2590,7 @@ def butterfly_phase() -> dict:
            "rounds_degraded": [s["rounds_degraded"] for s in summaries],
            "full_rounds": [len(f) for f in full], "round_s": [[c["s"] for c in f] for f in full],
            "stage_s": stage_s, "launches": launches}
-    row.update(proto_checks("butterfly", vols, summaries, paths, launches, failures))
+    row.update(proto_checks("butterfly", vols, summaries, paths, launches, failures, "gpt2_small", DEPTH_CUT))
     if min(len(f) for f in full) < BFLY_ROUNDS or any(v.clocksync is None for v in vols):
         failures.append(f"butterfly: rounds with both stages mixed {row['full_rounds']} < {BFLY_ROUNDS} each")
     # K4 per full round: each volunteer round-trips its buffer at each stage,
@@ -2618,6 +2671,120 @@ class CardMemorySampler:
         self._thread.join(10)
 
 
+def byzantine_attacker_argv(phase: str, addr: str, metrics, model: str, batch_size: int, wire: str = "bf16",
+                            overrides=None, extra=()) -> list:
+    """The attacker's ``run_volunteer_torch.py`` command line: a Byzantine
+    full-mesh volunteer of ``model`` on ``wire`` with the phase's cadence,
+    group bounds and gather ceiling, peer id ``<phase>X``, seed 9; ``extra``
+    adds the arm's own flags."""
+    argv = [sys.executable, str(HERE / "run_volunteer_torch.py"), "--model", model,
+            "--batch-size", str(batch_size),
+            "--averaging", "byzantine", "--method", "trimmed_mean", "--resilience", "--wire", wire,
+            "--average-every", str(PROTO_EVERY), "--no-overlap", "--min-group", "3", "--max-group", "3",
+            "--gather-timeout", str(PROTO_GATHER_S),
+            "--mesh-codec", "mesh", "--coordinator", addr, "--peer-id", f"{phase}X", "--seed", "9",
+            "--steps", "100000", "--metrics", str(metrics)]
+    for k, v in (overrides or {}).items():
+        argv += ["--model-override", f"{k}={json.dumps(v)}"]
+    return argv + [str(a) for a in extra]
+
+
+async def byzantine_swarm(phase: str, out_dir, kw: dict, attacker_argv, scale: str, instrument, failures: list,
+                          around=None) -> dict:
+    """Two honest in-process volunteers of one Byzantine phase (fields
+    ``kw``) and the attacker, ``attacker_argv(addr)`` run with
+    ``DVC_CHAOS_CONTRIB_SCALE`` = ``scale``: starts them, waits for the
+    attacker's state pull, wraps each honest volunteer with
+    ``instrument(vol, i)`` (a ``ProtoRecorder``), trains until every
+    recorder has ``BYZ_ROUNDS`` rounds all three fed, then stops the honest
+    volunteers and sends the attacker SIGTERM (a failure if it has not
+    exited 180 s later). ``around(vols)``, when given, runs before training
+    and returns what runs after it; both return dicts merged into
+    ``extra``."""
+    import os
+    import signal
+
+    att_log = out_dir / f"{phase}_attacker.log"
+    vols, paths = await start_volunteers(1, out_dir, phase, **kw)
+    addr = "%s:%d" % vols[0].transport.addr
+    att_metrics = out_dir / f"{phase}_attacker.jsonl"
+    attacker = await asyncio.create_subprocess_exec(
+        *attacker_argv(addr), cwd=str(HERE), env={**os.environ, "DVC_CHAOS_CONTRIB_SCALE": scale},
+        stdout=asyncio.subprocess.PIPE, stderr=open(att_log, "w"))
+    out = b""
+    extra = {}
+    try:
+        more, more_paths = await start_volunteers(1, out_dir, phase, first=1, coordinator=addr, **kw)
+        vols += more
+        paths += more_paths
+        deadline = time.monotonic() + PROTO_WAIT_S
+        while not any(r.get("event") == "state_pull" for r in read_jsonl(att_metrics)):
+            if attacker.returncode is not None or time.monotonic() > deadline:
+                raise AssertionError(f"attacker not up (rc {attacker.returncode}): {att_log.read_text()[-3000:]}")
+            await asyncio.sleep(0.5)
+        recs = [instrument(v, i) for i, v in enumerate(vols)]
+        for r in recs:
+            r.done = lambda _r: min(len(x.full_rounds(3, 2)) for x in recs) >= BYZ_ROUNDS
+        after = around(vols) if around else None
+        cuda_sync()
+        torch.cuda.reset_peak_memory_stats()
+        with CardMemorySampler() as mem:
+            summaries, run_s, launches = await train_until(vols, recs, phase)
+        extra["card_used_peak_bytes"] = mem.peak
+        extra["max_memory_allocated_this_process"] = torch.cuda.max_memory_allocated()
+        if after:
+            extra.update(after())
+        reports = [v._build_report() for v in vols]
+        policies = [v.resilience_policy.stats() for v in vols]
+    finally:
+        for v in vols:
+            v._stop.set()
+        if attacker.returncode is None:
+            attacker.send_signal(signal.SIGTERM)
+        await asyncio.gather(*(v.stop() for v in vols))
+        try:
+            out, _ = await asyncio.wait_for(attacker.communicate(), 180)
+        except asyncio.TimeoutError:
+            attacker.kill()
+            out, _ = await attacker.communicate()
+            failures.append(f"{phase}: the attacker did not exit within 180 s of SIGTERM")
+    done = [ln for ln in out.decode().splitlines() if ln.startswith("VOLUNTEER_DONE ")]
+    att = json.loads(done[-1].split(" ", 1)[1]) if done else None
+    return {"vols": vols, "paths": paths, "recs": recs, "summaries": summaries, "run_s": run_s,
+            "launches": launches, "reports": reports, "policies": policies, "att_rc": attacker.returncode,
+            "att": att, "att_log": att_log, "extra": extra}
+
+
+def byzantine_common(phase: str, swarm: dict, failures: list) -> dict:
+    """What every Byzantine phase checks and reports of its swarm: rounds
+    all three fed (at least ``BYZ_ROUNDS`` on each honest volunteer), each
+    report's controller state, the attacker's exit 0 on SIGTERM and its
+    codec ops on the card."""
+    full = [r.full_rounds(3, 2) for r in swarm["recs"]]
+    summaries, att = swarm["summaries"], swarm["att"]
+    row = {"run_s": swarm["run_s"],
+           "rounds_ok": [s["rounds_ok"] for s in summaries], "rounds_skipped": [s["rounds_skipped"] for s in summaries],
+           "rounds_degraded": [s["rounds_degraded"] for s in summaries], "full_rounds": [len(f) for f in full],
+           "round_s": [[c["s"] for c in f] for f in full],
+           "policies": swarm["policies"], "controller": [rep.get("controller") for rep in swarm["reports"]],
+           "attacker": {"rc": swarm["att_rc"], **{k: (att or {}).get(k) for k in ("steps", "rounds_ok", "mesh_codec")}},
+           "launches": swarm["launches"],
+           "card_used_peak_bytes": swarm["extra"]["card_used_peak_bytes"],
+           "max_memory_allocated_this_process": swarm["extra"]["max_memory_allocated_this_process"],
+           "init_memory": [v.init_memory for v in swarm["vols"]]}
+    if min(len(f) for f in full) < BYZ_ROUNDS:
+        failures.append(f"{phase}: rounds all three fed {row['full_rounds']} < {BYZ_ROUNDS} on each honest volunteer")
+    if any(not isinstance(rep.get("controller"), dict) for rep in swarm["reports"]):
+        failures.append(f"{phase}: a report lacks the controller's state")
+    if swarm["att_rc"] != 0 or att is None:
+        failures.append(f"{phase}: the attacker exited {swarm['att_rc']} on SIGTERM: "
+                        f"{swarm['att_log'].read_text()[-3000:]}")
+    att_codec = (att or {}).get("mesh_codec") or {}
+    if att_codec.get("backend") != "device" or att_codec.get("ops_host") != 0 or not att_codec.get("ops_mesh"):
+        failures.append(f"{phase}: the attacker's codec ops off the card: {att_codec}")
+    return row
+
+
 def byzantine_phase(model: str = "gpt2_small", batch_size: int = 8, phase: str = "byzantine",
                     overrides=None, param_dtype=None, lr=None) -> dict:
     """Byzantine full-mesh rounds with the trimmed mean and the resilience
@@ -2632,9 +2799,6 @@ def byzantine_phase(model: str = "gpt2_small", batch_size: int = 8, phase: str =
     to it: each contribution's wire bytes are the subtree's in bf16, each
     round sends about two of them, and the rest of the params (the frozen
     base) is bit-unchanged after training on each honest volunteer."""
-    import os
-    import signal
-
     import numpy as np
 
     from distributedvolunteercomputing_tpu_torch.swarm.transport import _payload_len
@@ -2643,8 +2807,7 @@ def byzantine_phase(model: str = "gpt2_small", batch_size: int = 8, phase: str =
     out_dir.mkdir(parents=True, exist_ok=True)
     failures = []
     attacker_id = f"{phase}X"
-    att_metrics, att_log = out_dir / f"{phase}_attacker.jsonl", out_dir / f"{phase}_attacker.log"
-    att_metrics.unlink(missing_ok=True)
+    (out_dir / f"{phase}_attacker.jsonl").unlink(missing_ok=True)
     rejections = [collections.Counter(), collections.Counter()]
     packs = [[], []]  # per honest volunteer: (payload elements, wire bytes) of each contribution
     sent = [[], []]  # per honest volunteer: transport bytes sent during each averaging call
@@ -2655,20 +2818,9 @@ def byzantine_phase(model: str = "gpt2_small", batch_size: int = 8, phase: str =
     subtree = model == "llama_lora"
 
     def attacker_argv(addr):
-        argv = [sys.executable, str(HERE / "run_volunteer_torch.py"), "--model", model,
-                "--batch-size", str(batch_size),
-                "--averaging", "byzantine", "--method", "trimmed_mean", "--resilience", "--wire", "bf16",
-                "--average-every", str(PROTO_EVERY), "--no-overlap", "--min-group", "3", "--max-group", "3",
-                "--gather-timeout", str(PROTO_GATHER_S),
-                "--mesh-codec", "mesh", "--coordinator", addr, "--peer-id", attacker_id, "--seed", "9",
-                "--steps", "100000", "--metrics", str(att_metrics)]
-        for k, v in overrides.items():
-            argv += ["--model-override", f"{k}={json.dumps(v)}"]
-        if param_dtype:
-            argv += ["--param-dtype", param_dtype]
-        if lr is not None:
-            argv += ["--lr", str(lr)]
-        return argv
+        extra = (["--param-dtype", param_dtype] if param_dtype else []) + (["--lr", lr] if lr is not None else [])
+        return byzantine_attacker_argv(phase, addr, out_dir / f"{phase}_attacker.jsonl", model, batch_size,
+                                       overrides=overrides, extra=extra)
 
     def instrument(vol, i):
         policy, avg = vol.resilience_policy, vol.averager
@@ -2702,83 +2854,24 @@ def byzantine_phase(model: str = "gpt2_small", batch_size: int = 8, phase: str =
         """The params outside the averaged subtree (llama_lora: the base)."""
         return vol.trainer.state.params["base"]
 
-    async def run():
-        vols, paths = await start_volunteers(1, out_dir, phase, **kw)
-        addr = "%s:%d" % vols[0].transport.addr
-        attacker = await asyncio.create_subprocess_exec(
-            *attacker_argv(addr), cwd=str(HERE), env={**os.environ, "DVC_CHAOS_CONTRIB_SCALE": BYZ_SCALE},
-            stdout=asyncio.subprocess.PIPE, stderr=open(att_log, "w"))
-        out = b""
-        extra = {}
-        try:
-            more, more_paths = await start_volunteers(1, out_dir, phase, first=1, coordinator=addr, **kw)
-            vols += more
-            paths += more_paths
-            deadline = time.monotonic() + PROTO_WAIT_S
-            while not any(r.get("event") == "state_pull" for r in read_jsonl(att_metrics)):
-                if attacker.returncode is not None or time.monotonic() > deadline:
-                    raise AssertionError(f"attacker not up (rc {attacker.returncode}): {att_log.read_text()[-3000:]}")
-                await asyncio.sleep(0.5)
-            recs = [instrument(v, i) for i, v in enumerate(vols)]
-            for r in recs:
-                r.done = lambda _r: min(len(x.full_rounds(3, 2)) for x in recs) >= BYZ_ROUNDS
-            if subtree:
-                extra["base_before"] = [bits_fingerprint(frozen(v)) for v in vols]
-                extra["init_memory"] = [v.init_memory for v in vols]
-            cuda_sync()
-            torch.cuda.reset_peak_memory_stats()
-            with CardMemorySampler() as mem:
-                summaries, run_s, launches = await train_until(vols, recs, phase)
-            extra["card_used_peak_bytes"] = mem.peak
-            extra["max_memory_allocated_this_process"] = torch.cuda.max_memory_allocated()
-            if subtree:
-                extra["base_after"] = [bits_fingerprint(frozen(v)) for v in vols]
-            reports = [v._build_report() for v in vols]
-            policies = [v.resilience_policy.stats() for v in vols]
-        finally:
-            for v in vols:
-                v._stop.set()
-            if attacker.returncode is None:
-                attacker.send_signal(signal.SIGTERM)
-            await asyncio.gather(*(v.stop() for v in vols))
-            try:
-                out, _ = await asyncio.wait_for(attacker.communicate(), 180)
-            except asyncio.TimeoutError:
-                attacker.kill()
-                out, _ = await attacker.communicate()
-                failures.append(f"{phase}: the attacker did not exit within 180 s of SIGTERM")
-        done = [ln for ln in out.decode().splitlines() if ln.startswith("VOLUNTEER_DONE ")]
-        att = json.loads(done[-1].split(" ", 1)[1]) if done else None
-        return vols, paths, recs, summaries, run_s, launches, reports, policies, attacker.returncode, att, extra
+    def around(vols):
+        before = [bits_fingerprint(frozen(v)) for v in vols]
+        return lambda: {"base_before": before, "base_after": [bits_fingerprint(frozen(v)) for v in vols]}
 
-    vols, paths, recs, summaries, run_s, launches, reports, policies, att_rc, att, extra = asyncio.run(run())
+    swarm = asyncio.run(byzantine_swarm(phase, out_dir, kw, attacker_argv, BYZ_SCALE, instrument, failures,
+                                        around if subtree else None))
+    vols, recs, launches, extra = swarm["vols"], swarm["recs"], swarm["launches"], swarm["extra"]
     full = [r.full_rounds(3, 2) for r in recs]
     row = {"phase": phase, "model": model, "overrides": overrides, "param_dtype": param_dtype,
            "batch_size": batch_size, "wire": "bf16", "method": "trimmed_mean",
            "resilience": True, "average_every": PROTO_EVERY, "gather_timeout": PROTO_GATHER_S,
-           "attacker_scale": float(BYZ_SCALE), "run_s": run_s,
-           "rounds_ok": [s["rounds_ok"] for s in summaries], "rounds_skipped": [s["rounds_skipped"] for s in summaries],
-           "rounds_degraded": [s["rounds_degraded"] for s in summaries], "full_rounds": [len(f) for f in full],
-           "round_s": [[c["s"] for c in f] for f in full], "rejections": [dict(c) for c in rejections],
-           "policies": policies, "controller": [rep.get("controller") for rep in reports],
-           "attacker": {"rc": att_rc, **{k: (att or {}).get(k) for k in ("steps", "rounds_ok", "mesh_codec")}},
-           "launches": launches, "packs": packs, "bytes_sent_per_call": sent,
-           "card_used_peak_bytes": extra["card_used_peak_bytes"],
-           "max_memory_allocated_this_process": extra["max_memory_allocated_this_process"],
-           "init_memory": [v.init_memory for v in vols]}
-    row.update(proto_checks(phase, vols, summaries, paths, launches, failures, model, overrides))
-    row["steps_per_s"] = [n / run_s for n in row["steps_run"]]
-    if min(len(f) for f in full) < BYZ_ROUNDS:
-        failures.append(f"{phase}: rounds all three fed {row['full_rounds']} < {BYZ_ROUNDS} on each honest volunteer")
+           "attacker_scale": float(BYZ_SCALE), "rejections": [dict(c) for c in rejections],
+           "packs": packs, "bytes_sent_per_call": sent}
+    row.update(byzantine_common(phase, swarm, failures))
+    row.update(proto_checks(phase, vols, swarm["summaries"], swarm["paths"], launches, failures, model, overrides))
+    row["steps_per_s"] = [n / swarm["run_s"] for n in row["steps_run"]]
     if any(c[attacker_id] < 1 for c in rejections):
         failures.append(f"{phase}: an honest policy recorded no rejection of the attacker: {row['rejections']}")
-    if any(not isinstance(rep.get("controller"), dict) for rep in reports):
-        failures.append(f"{phase}: a report lacks the controller's state")
-    if att_rc != 0 or att is None:
-        failures.append(f"{phase}: the attacker exited {att_rc} on SIGTERM: {att_log.read_text()[-3000:]}")
-    att_codec = (att or {}).get("mesh_codec") or {}
-    if att_codec.get("backend") != "device" or att_codec.get("ops_host") != 0 or not att_codec.get("ops_mesh"):
-        failures.append(f"{phase}: the attacker's codec ops off the card: {att_codec}")
     # K4 per honest volunteer per round: the health probe's slice, one lazy
     # encode per push to each of the two peers, and its own round trip.
     k4_check(phase, launches, 4 * sum(len(f) for f in full), failures)
@@ -2835,6 +2928,215 @@ def byzantine_phase(model: str = "gpt2_small", batch_size: int = 8, phase: str =
     if not values:
         failures.append(f"{phase}: no round with both honest results recorded")
     row["values"] = values
+    emit(row)
+    if failures:
+        raise AssertionError(f"{phase} phase: {failures}")
+    return launches
+
+
+def median_of_three(stack):
+    """The coordinate median of a [3, n] stack, elementwise: what trim 1 of
+    3 keeps, computed apart from the codec's estimator."""
+    import numpy as np
+
+    a, b, c = stack
+    return np.maximum(np.minimum(a, b), np.minimum(np.maximum(a, b), c))
+
+
+def rows_d2(stack, agg, chunk: int = 1 << 24) -> list:
+    """Each row's squared distance to ``agg`` in float64, a chunk at a time
+    (apart from ``health.row_d2``)."""
+    import numpy as np
+
+    out = [0.0] * len(stack)
+    for lo in range(0, agg.size, chunk):
+        ref = agg[lo:lo + chunk].astype(np.float64)
+        for i, row in enumerate(stack):
+            d = row[lo:lo + chunk] - ref
+            out[i] += float(d @ d)
+    return out
+
+
+def compressed_byzantine_phase(phase: str, wire: str, psgd_rank=None) -> dict:
+    """Config 8's grads-mode Byzantine arms (``experiments/run_matrix.py``
+    ``config8_kitchen_sink_r4``) at full width: two honest gpt2_small
+    volunteers (at ``DEPTH_CUT``) in this process and the attacker process at
+    ``BYZ_GRADS_SCALE`` (-3), the trimmed mean with trim ``BYZ_GRADS_TRIM``
+    (1), a round every step on ``wire`` ("powersgd" at ``psgd_rank``, or
+    "sign").
+
+    Each honest volunteer runs its averager on a codec of its own (the
+    process codec's device and backend), so the device low-rank calls that
+    codec counts (``MeshCodec.low_rank_calls``, counted where the device op
+    runs) are that volunteer's. Volunteer 0's codec keeps the estimator's
+    input of each round all three fed (the last ``BYZ_ROUNDS`` + 1): the
+    three decoded rows (honest, honest, attacker: peer ids sort so) and the
+    aggregate. After the run the phase checks, apart from the averager's own
+    code: the aggregate equals the
+    coordinate median of the rows bit for bit (so each honest result lies
+    inside the honest pair); the rows past the reference's rejection bar
+    (squared distance to the aggregate above ``ATTACKER_BAR`` times the
+    median row distance squared, in float64) are exactly the peers each
+    honest policy rejected in that round; both honest results are bit-equal
+    and equal the recorded aggregate. K4 and K5 must not launch, and on
+    powersgd each honest codec's low-rank ops must have run on the card and
+    the two codecs' counts must add up to the process's. The attacker must
+    exit 0 on SIGTERM.
+
+    Per round the row reports the attacker's ratio to the bar's median, the
+    attacker's RMS over the honest mean (k) and the honest rows' cosine.
+    With honest sign rows that agree in sign no more than chance, the ratio
+    is k² − k + 1 in expectation, under 9 unless k passes about 3.37: a ×−3
+    attacker is rejected only when its gradient is larger than the honest
+    ones, as when its round still carries the gradient of an earlier step
+    (PERF.md section 7), so a rejection in every run is reported
+    (``attacker_rejected_rounds``), not required."""
+    import hashlib
+
+    import numpy as np
+
+    from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
+    from distributedvolunteercomputing_tpu_torch.swarm.transport import _payload_len
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer
+
+    out_dir = HERE / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    failures = []
+    attacker_id = f"{phase}X"
+    (out_dir / f"{phase}_attacker.jsonl").unlink(missing_ok=True)
+    rejections = [collections.Counter(), collections.Counter()]
+    packs = [[], []]  # per honest volunteer: (payload elements, wire bytes) of each contribution
+    codecs = [None, None]
+    pending = [None]  # volunteer 0: the estimator input (stack, aggregate) of its current round
+    kept = []  # volunteer 0: the epochs whose input is still held
+    results = collections.defaultdict(dict)  # epoch -> volunteer -> sha256 of its result
+    kw = dict(averaging="byzantine", method="trimmed_mean", method_kw={"trim": BYZ_GRADS_TRIM}, resilience=True,
+              average_every=PROTO_EVERY, min_group=3, max_group=3, wire=wire, average_what="grads",
+              model_overrides=dict(DEPTH_CUT), **({"powersgd_rank": psgd_rank} if psgd_rank is not None else {}))
+    flags = ["--average-what", "grads", "--method-kw", f"trim={BYZ_GRADS_TRIM}"]
+    flags += ["--psgd-rank", psgd_rank] if psgd_rank is not None else []
+
+    def attacker_argv(addr):
+        return byzantine_attacker_argv(phase, addr, out_dir / f"{phase}_attacker.jsonl", "gpt2_small", 8,
+                                       wire=wire, overrides=DEPTH_CUT, extra=flags)
+
+    def digest(buf) -> str:
+        return hashlib.sha256(np.ascontiguousarray(buf, np.float32).view(np.uint8)).hexdigest()
+
+    def recording(codec):
+        aggregate = codec.aggregate
+
+        def recorded(stack, method, **kwargs):
+            # Kept, not analysed: host work here would slow this volunteer's
+            # rounds against the other's (they share one interpreter).
+            out = aggregate(stack, method, **kwargs)
+            if len(stack) == 3:
+                pending[0] = (stack, out)
+            return out
+
+        return recorded
+
+    def analyse(stack, out) -> dict:
+        """The estimator's input of one round against the rule, in float64."""
+        med = median_of_three(stack)
+        d2 = rows_d2(stack, med)
+        sq = [float(np.einsum("i,i->", r, r, dtype=np.float64)) for r in stack]
+        rms = [math.sqrt(x / stack.shape[1]) for x in sq]
+        bar = float(np.median(np.sqrt(d2))) ** 2
+        return {"aggregate_is_median": bool(np.array_equal(out, med)), "aggregate": digest(out), "d2": d2,
+                "rms": rms, "past_bar": [i for i in range(3) if bar > 0 and d2[i] > ATTACKER_BAR * bar],
+                "ratio": d2[2] / bar if bar > 0 else None, "k": rms[2] / (0.5 * (rms[0] + rms[1])),
+                "honest_cos": float(np.einsum("i,i->", stack[0], stack[1], dtype=np.float64)) / math.sqrt(sq[0] * sq[1])}
+
+    def instrument(vol, i):
+        policy, avg = vol.resilience_policy, vol.averager
+        record, pack = policy.record_rejection, avg._pack_and_compress
+        codecs[i] = mc.MeshCodec(device=avg.mesh_codec.device, backend=avg.mesh_codec.backend)
+        if i == 0:
+            codecs[i].aggregate = recording(codecs[i])
+        avg._mesh_codec = codecs[i]
+
+        def counted(peer):
+            rejections[i][peer] += 1
+            return record(peer)
+
+        async def recorded_pack(tree):
+            out = await pack(tree)
+            packs[i].append((int(out[0].size), _payload_len(out[1])))
+            return out
+
+        policy.record_rejection = counted
+        avg._pack_and_compress = recorded_pack
+        rec = ProtoRecorder(vol, keep=0)
+        before_counts = [None]
+
+        def before():
+            before_counts[0] = collections.Counter(rejections[i])
+            pending[0] = None if i == 0 else pending[0]
+
+        def after(call, result):
+            call["rejected"] = sorted((rejections[i] - before_counts[0]).elements())
+            if result is not None and call["size"] == 3 and not call["degraded"] \
+                    and not call["outcomes"].get("absent"):
+                results[call["epoch"]][i] = {"digest": digest(flatten_to_buffer(result)[0]), "step": call["step"],
+                                             "rejected": call["rejected"],
+                                             **({"input": pending[0]} if i == 0 else {})}
+                if i == 0:
+                    kept.append(call["epoch"])
+                    if len(kept) > BYZ_ROUNDS + 1:  # host memory: 2 GB a round
+                        results[kept.pop(0)][0].pop("input", None)
+
+        rec.before, rec.after = before, after
+        return rec
+
+    swarm = asyncio.run(byzantine_swarm(phase, out_dir, kw, attacker_argv, BYZ_GRADS_SCALE, instrument, failures))
+    vols, launches = swarm["vols"], swarm["launches"]
+    row = {"phase": phase, "model": "gpt2_small", "overrides": DEPTH_CUT, "batch_size": 8, "wire": wire,
+           "average_what": "grads",
+           "method": "trimmed_mean", "method_kw": {"trim": BYZ_GRADS_TRIM}, "powersgd_rank": psgd_rank,
+           "resilience": True, "average_every": PROTO_EVERY, "gather_timeout": PROTO_GATHER_S,
+           "attacker_scale": float(BYZ_GRADS_SCALE), "attacker_bar": ATTACKER_BAR,
+           "rejections": [dict(c) for c in rejections], "packs": packs}
+    row.update(byzantine_common(phase, swarm, failures))
+    row.update(proto_checks(phase, vols, swarm["summaries"], swarm["paths"], launches, failures, "gpt2_small",
+                            DEPTH_CUT))
+    row["steps_per_s"] = [n / swarm["run_s"] for n in row["steps_run"]]
+    rounds = []
+    peers = [v.cfg.peer_id for v in vols] + [attacker_id]
+    for epoch, got in results.items():
+        if len(got) < 2 or "input" not in got[0]:
+            continue
+        rec = got[0].pop("input")
+        rec = analyse(*rec) if rec is not None else None
+        r = {"epoch": epoch, "step": got[0]["step"], "rejected": [got[0]["rejected"], got[1]["rejected"]],
+             "results_bit_equal": got[0]["digest"] == got[1]["digest"]}
+        if rec is not None:
+            r.update({k: rec[k] for k in ("ratio", "k", "honest_cos", "rms", "d2", "aggregate_is_median")})
+            r["past_bar"] = [peers[i] for i in rec["past_bar"]]
+            r["result_is_aggregate"] = got[0]["digest"] == rec["aggregate"]
+        rounds.append(r)
+        # The estimator, the rule and the policies, apart from the
+        # averager's own arithmetic: one round's checks.
+        if rec is None or not (r["aggregate_is_median"] and r["result_is_aggregate"] and r["results_bit_equal"]) \
+                or any(rj != [p for p in r["past_bar"] if p != peers[i]] for i, rj in enumerate(r["rejected"])):
+            failures.append(f"{phase}: a round's aggregate, results or rejections disagree with the rule: {r}")
+    row["rounds"] = rounds
+    row["attacker_rejected_rounds"] = [sum(attacker_id in r["rejected"][i] for r in rounds) for i in (0, 1)]
+    if len(rounds) < BYZ_ROUNDS:
+        failures.append(f"{phase}: {len(rounds)} rounds recorded on both honest volunteers < {BYZ_ROUNDS}")
+    # The compressed wires encode on the host (native) and PowerSGD's
+    # factors are library calls: no K4, and nothing streams into K5.
+    if launches["bf16_encode"] or launches["bf16_fold_chunks"]:
+        failures.append(f"{phase}: K4/K5 launched on the {wire} wire: {launches}")
+    row["low_rank_calls"] = [dict(c.low_rank_calls) for c in codecs]
+    row["codec_stats"] = [c.stats() for c in codecs]
+    if wire == "powersgd":
+        total = {k: sum(c.low_rank_calls[k] for c in codecs) for k in mc.LOW_RANK_CALLS}
+        if not all(c.low_rank_calls[k] > 0 for c in codecs for k in total) or total != dict(mc.LOW_RANK_CALLS):
+            failures.append(f"{phase}: an honest volunteer's PowerSGD ops did not run on its card codec, or the "
+                            f"codecs' counts {row['low_rank_calls']} miss the process's {dict(mc.LOW_RANK_CALLS)}")
+    att_calls = ((swarm["att"] or {}).get("mesh_codec") or {}).get("launches", {})
+    row["attacker"]["low_rank_calls"] = {k: att_calls.get(k) for k in mc.LOW_RANK_CALLS}
     emit(row)
     if failures:
         raise AssertionError(f"{phase} phase: {failures}")
@@ -2947,7 +3249,7 @@ def zones_phase() -> dict:
     async def run():
         vols, paths = await start_volunteers(
             len(ZONES), out_dir, "zones", averaging="sync", average_every=AVG_EVERY, join_timeout=4.0,
-            gather_timeout=ZONE_GATHER_S,
+            gather_timeout=ZONE_GATHER_S, model_overrides=dict(DEPTH_CUT),
             group_size=ZONE_GROUP, group_rotation_s=ZONE_ROTATION_S, cross_zone_every_k=ZONE_K,
             per=lambda i: {"zone": ZONES[i]},
         )
@@ -2964,7 +3266,8 @@ def zones_phase() -> dict:
     pids = list(zone_of)
     calls = {pid: r.calls for pid, r in zip(pids, recs)}
     agg = [s.get("aggregation", {}) for s in summaries]
-    row = {"phase": "zones", "model": "gpt2_small", "batch_size": 8, "wire": "bf16", "zones": zone_of,
+    row = {"phase": "zones", "model": "gpt2_small", "overrides": DEPTH_CUT, "batch_size": 8, "wire": "bf16",
+           "zones": zone_of,
            "group_size": ZONE_GROUP, "group_rotation_s": ZONE_ROTATION_S, "cross_zone_every_k": ZONE_K,
            "average_every": AVG_EVERY, "run_s": run_s,
            "committed": {pid: {lv: len(committed(r, lv)) for lv in ZONE_COMMITS} for pid, r in zip(pids, recs)},
@@ -2978,7 +3281,7 @@ def zones_phase() -> dict:
                      for pid, cs in calls.items()},
            "zone_traffic": traffic,
            "aggregation": agg, "launches": launches}
-    row.update(proto_checks("zones", vols, summaries, paths, launches, failures))
+    row.update(proto_checks("zones", vols, summaries, paths, launches, failures, "gpt2_small", DEPTH_CUT))
     for pid, r in zip(pids, recs):
         for lv, n in ZONE_COMMITS.items():
             if len(committed(r, lv)) < n:
@@ -3019,6 +3322,9 @@ def zones_phase() -> dict:
     if {v["level"] for v in values} != set(ZONE_COMMITS):
         failures.append(f"zones: rounds whose whole group was recorded, by level: {[v['level'] for v in values]}")
     row["values"] = values
+    cross = [c["zone_traffic_cross"] for r in recs for c in committed(r, "cross")]
+    row["xz_bytes_per_committed_cross_round"] = CROSS_ZONE_BYTES["zones"] = (
+        float(sum(cross) / len(cross)) if cross else None)
     del kept
     emit(row)
     if failures:
@@ -3323,6 +3629,450 @@ def hedge_phase() -> dict:
     if failures:
         raise AssertionError(f"hedge phase: {failures}")
     return row["launches"]
+
+
+# ---------------------------------------------------------------------------
+# the compressed wires and zone-sharded training: q8 and topk sync rounds,
+# config 8's PowerSGD and sign Byzantine arms, a zone-sharded swarm
+# ---------------------------------------------------------------------------
+
+WIRE_ARMS = {  # arm -> the two volunteers' config fields
+    "q8": dict(wire="q8", average_every=AVG_EVERY),
+    "topk": dict(wire="topk", average_what="grads", topk_frac=0.01, average_every=1),
+}
+WIRE_COMMITS = 2  # committed rounds each volunteer of an arm must make
+WIRE_GATHER_S = 20.0  # gather ceiling of the wires arms: a round takes 3-7 s, a skipped one this long
+# The wires' own rounding. A leader's result is an f32 fold of the
+# contributions as peers decode them: 4 f32 ulps of their scale. A q8
+# member's is the leader's result through q8: one quantization step of its
+# chunk (the chunk's largest magnitude / 127; the native codec's stated
+# bound). A topk member's is exact (a result ships every nonzero), held to
+# the same 4 ulps.
+WIRE_TOL = {"f32_ulps": 4 * 2.0**-24, "q8_steps": 1.0, "floor": 2.0**-126}
+PSGD_RANK = 4  # config 8's --psgd-rank
+# The reference's rejection rule (ByzantineAverager): a row is voted out when
+# its squared distance to the robust aggregate passes 9 times the median row
+# distance squared (3x in distance).
+ATTACKER_BAR = 9.0
+BYZ_GRADS_SCALE = "-3"  # config 8's attacker (DVC_CHAOS_CONTRIB_SCALE)
+BYZ_GRADS_TRIM = 1  # config 8's --method-kw trim=1
+SHARD_K = 2  # zone_shards
+SHARD_ZONES = ("a", "a", "b", "b")  # the zone_shards phase's volunteers
+# group_rotation_s: every rotation groups the same pairs (each shard's
+# holders across the zones), so a long one only spares rounds the skips at
+# rotation boundaries.
+SHARD_ROTATION_S = 30.0
+SHARD_COMMITS = 2  # committed rounds each volunteer must make before one leaves
+SHARD_SETTLE_S = 90.0  # cap on the wait for each zone's holders to agree on one map
+SHARD_RECOVER_S = 120.0  # cap on the wait for the partner's re-shard and recovery
+# Cross-zone bytes per committed cross round of the zones phase, for the
+# zone_shards phase's row.
+CROSS_ZONE_BYTES: dict = {}
+
+
+def wire_contribution_bytes(wire: str, n: int, frac=None) -> int:
+    """The wire bytes of one contribution of ``n`` elements."""
+    from distributedvolunteercomputing_tpu_torch import native
+
+    if wire == "q8":
+        return native.q8_coded_size(n)
+    if wire == "sign":
+        return native.sign_coded_size(n)
+    # topk: magic, mode and n; then a u32 index and an f32 value per entry.
+    return 3 + 1 + 8 + 8 * max(1, int(n * frac))
+
+
+def wire_pair_values(pair: dict, leader: str, wire: str, failures: list) -> dict:
+    """One committed round of a wires arm: ``pair`` maps each volunteer to its
+    record (weight, ``sent``: its contribution as peers decode it, result).
+    The leader's result against the f64 weighted mean of the decoded
+    contributions, the member's against the leader's (``WIRE_TOL``); f64 on
+    the card."""
+    from distributedvolunteercomputing_tpu_torch import native
+
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    tol = WIRE_TOL
+    xs = {pid: torch.from_numpy(r["sent"]).to(dev, torch.float64) for pid, r in pair.items()}
+    ws = {pid: r["weight"] for pid, r in pair.items()}
+    want = sum(ws[p] * xs[p] for p in xs) / sum(ws.values())
+    scale = torch.stack(list(xs.values())).abs().amax(0)
+    del xs
+    lead = torch.from_numpy(pair[leader]["result"]).to(dev, torch.float64)
+    err = (lead - want).abs()
+    out = {"members": list(pair), "leader": leader, "weights": ws, "step": pair[leader]["step"],
+           "leader_max_abs_err": err.max().item(),
+           "leader_limit_used": (err / (tol["f32_ulps"] * scale + tol["floor"])).max().item(),
+           "member_limit_used": 0.0, "finite": bool(torch.isfinite(lead).all())}
+    del want, scale, err
+    lim = tol["f32_ulps"] * lead.abs() + tol["floor"]
+    if wire == "q8":
+        n, chunk = lead.numel(), native.Q8_CHUNK
+        cmax = torch.nn.functional.pad(lead.abs(), (0, -n % chunk)).view(-1, chunk).amax(1)
+        lim = lim + tol["q8_steps"] * cmax.repeat_interleave(chunk)[:n] / 127.0
+        del cmax
+    for pid, r in pair.items():
+        if pid != leader:
+            got = torch.from_numpy(r["result"]).to(dev, torch.float64)
+            out["member_limit_used"] = max(out["member_limit_used"], ((got - lead).abs() / lim).max().item())
+            out["member_bit_equal"] = r["result"].tobytes() == pair[leader]["result"].tobytes()
+            out["finite"] &= bool(torch.isfinite(got).all())
+            del got
+    del lead, lim
+    if not (out["finite"] and out["leader_limit_used"] <= 1.0 and out["member_limit_used"] <= 1.0):
+        failures.append(f"{wire}: averaged values outside WIRE_TOL: {out}")
+    return out
+
+
+def wires_phase() -> dict:
+    """The q8 and topk wires (``WIRE_ARMS``), two full-width volunteers per
+    arm (gpt2_small at ``DEPTH_CUT``) in blocking sync rounds: q8 averages params every ``AVG_EVERY``
+    steps, topk (``topk_frac`` 0.01) gradients every step. Until each
+    volunteer has committed ``WIRE_COMMITS`` rounds. Checked per arm: every
+    contribution's wire bytes are ``wire_contribution_bytes`` of the
+    averaged subtree's element count; each round both recorded within
+    ``WIRE_TOL`` (``wire_pair_values``); on topk the error-feedback residual
+    of each volunteer's last contribution equals ``x -
+    topk_decode(topk_encode(x))`` bit for bit (x: the gradient plus the
+    banked residual) and is what a committed round banks; K1-K3 per step;
+    no K4 and no K5 (these wires encode on the host, and only f32 and bf16
+    stream into the device folder)."""
+    import numpy as np
+
+    from distributedvolunteercomputing_tpu_torch import native
+    from distributedvolunteercomputing_tpu_torch.swarm.transport import _payload_len
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer, tree_leaves
+
+    out_dir = HERE / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    launches_by_arm = {}
+    for arm, fields in WIRE_ARMS.items():
+        what = f"wires_{arm}"
+        wire, frac = fields["wire"], fields.get("topk_frac")
+        failures = []
+        packs, kept, ef, banked = {}, {}, {}, {}
+
+        def instrument(vol):
+            pid, avg = vol.cfg.peer_id, vol.averager
+            packs[pid], kept[pid], banked[pid] = [], collections.deque(maxlen=3), []
+            pack, average = avg._pack_and_compress, avg.average
+            cur = {}
+
+            async def recorded_pack(tree):
+                prev = avg._ef_residual
+                out = await pack(tree)
+                packs[pid].append((int(out[0].size), _payload_len(out[1])))
+                cur["wire"] = out[1]  # decoded after training, off the loop
+                if wire == "topk":
+                    ef[pid] = (out[0], prev, avg._ef_pending)
+                return out
+
+            async def weighed(tree, *a, **kw):
+                cur["weight"] = kw.get("weight", 1.0)
+                return await average(tree, *a, **kw)
+
+            avg._pack_and_compress, avg.average = recorded_pack, weighed
+            rec = ProtoRecorder(vol, keep=0)
+
+            def before():
+                cur.clear()
+
+            def after(call, result):
+                if result is None or "wire" not in cur:
+                    return
+                if wire == "topk":
+                    banked[pid].append(avg._ef_residual is ef[pid][2])
+                kept[pid].append({"epoch": call["epoch"], "step": call["step"], "members": call["members"],
+                                  "weight": cur["weight"], "wire": cur["wire"],
+                                  "result": flatten_to_buffer(result)[0]})
+
+            rec.before, rec.after = before, after
+            return rec
+
+        async def run():
+            vols, paths = await start_volunteers(2, out_dir, what, averaging="sync", join_timeout=4.0,
+                                                 gather_timeout=WIRE_GATHER_S, model_overrides=dict(DEPTH_CUT),
+                                                 **fields)
+            try:
+                recs = [instrument(v) for v in vols]
+                for r in recs:
+                    r.done = lambda _r: min(x.committed() for x in recs) >= WIRE_COMMITS
+                out = await train_until(vols, recs, what)
+                trainer = vols[0].trainer
+                n = sum(int(x.numel()) for x in tree_leaves(trainer.bundle.avg_select(trainer.state.params)))
+                return (vols, paths, recs, *out, n)
+            finally:
+                await asyncio.gather(*(v.stop() for v in vols))
+
+        vols, paths, recs, summaries, run_s, launches, n = asyncio.run(run())
+        pids = [v.cfg.peer_id for v in vols]
+        want_bytes = wire_contribution_bytes(wire, n, frac)
+        row = {"phase": "wires", "arm": arm, "model": "gpt2_small", "overrides": DEPTH_CUT, "batch_size": 8,
+               **fields, "run_s": run_s,
+               "n": n, "contribution_bytes_expected": want_bytes,
+               "contribution_bytes": {pid: sorted({b for _, b in packs[pid]}) for pid in pids},
+               "committed": [r.committed() for r in recs],
+               "rounds_skipped": [s["rounds_skipped"] for s in summaries],
+               "round_s": [[c["s"] for c in r.calls if c["ok"]] for r in recs],
+               "wan_bytes_sent": [s["wan_bytes_sent"] for s in summaries], "launches": launches}
+        row.update(proto_checks(what, vols, summaries, paths, launches, failures, "gpt2_small", DEPTH_CUT,
+                                codec_ops=False))
+        if min(row["committed"]) < WIRE_COMMITS:
+            failures.append(f"{what}: committed {row['committed']} < {WIRE_COMMITS} each")
+        for pid in pids:
+            if not packs[pid] or any(p != (n, want_bytes) for p in packs[pid]):
+                failures.append(f"{what}: {pid}'s contributions are not {n} elements in {want_bytes} bytes: "
+                                f"{sorted(set(packs[pid]))}")
+        if launches["bf16_encode"] or launches["bf16_fold_chunks"]:
+            failures.append(f"{what}: K4/K5 launched on the {wire} wire: {launches}")
+        values = []
+        common = sorted({r["epoch"] for r in kept[pids[0]]} & {r["epoch"] for r in kept[pids[1]]})
+        for epoch in common:
+            pair = {pid: next(r for r in kept[pid] if r["epoch"] == epoch) for pid in pids}
+            for r in pair.values():
+                r["sent"] = (native.q8_decode(r["wire"]) if wire == "q8"
+                             else native.topk_decode(bytes(r["wire"]), max_floats=n))
+            leader = pair[pids[0]]["members"][0]
+            values.append(wire_pair_values(pair, leader, wire, failures))
+        if len(values) < WIRE_COMMITS:
+            failures.append(f"{what}: values of {len(values)} rounds recorded on both, want >= {WIRE_COMMITS}")
+        row["values"] = values
+        if wire == "topk":
+            row["ef"] = {}
+            for pid in pids:
+                buf, prev, pending = ef[pid]
+                x = buf + prev if prev is not None and prev.size == buf.size else buf
+                want = x - native.topk_decode(native.topk_encode(x, frac=frac), max_floats=x.size)
+                row["ef"][pid] = {"residual_bit_equal": pending.tobytes() == want.tobytes(),
+                                  "had_residual": prev is not None, "banked_on_commit": banked[pid]}
+                if not (row["ef"][pid]["residual_bit_equal"] and all(banked[pid]) and banked[pid]):
+                    failures.append(f"{what}: {pid}'s error-feedback residual: {row['ef'][pid]}")
+                del buf, prev, pending, x, want
+        del kept, ef
+        emit(row)
+        if failures:
+            raise AssertionError(f"{what} phase: {failures}")
+        launches_by_arm[what] = launches
+        release_card_memory()
+    return launches_by_arm
+
+
+def shard_peer_ids(namespace: str) -> list:
+    """Peer ids for ``SHARD_ZONES`` whose HRW maps give each zone's two
+    holders one shard each (HRW gives two members no balance guarantee; the
+    reference's chaos soak picks its holders the same way)."""
+    from distributedvolunteercomputing_tpu_torch.swarm.sharding import ShardMap
+
+    out = []
+    for zone in dict.fromkeys(SHARD_ZONES):
+        for t in range(4000):
+            a, b = f"shard{zone}{t:03d}x", f"shard{zone}{t:03d}y"
+            m = ShardMap(members=(a, b), k=SHARD_K, gen=0, domain=f"{zone}|{namespace}")
+            if m.shards_of(a) == [0] and m.shards_of(b) == [1]:
+                out += [a, b]
+                break
+        else:
+            raise AssertionError(f"no balanced holder pair for zone {zone}")
+    return out
+
+
+def zone_shards_phase() -> dict:
+    """Zone-sharded training at full width (gpt2_small at ``DEPTH_CUT``):
+    four volunteers in this process
+    in zones ``SHARD_ZONES`` with ``zone_shards`` = ``SHARD_K``, groups of 2,
+    every rotation across zones (``cross_zone_every_k`` 1, rotations every
+    ``SHARD_ROTATION_S``), blocking bf16 sync rounds every ``AVG_EVERY``
+    steps. Once each zone's holders agree on one map, they train until each
+    has committed ``SHARD_COMMITS`` rounds. Checked while all four are up:
+    both holders of a zone hold the same ``ShardMap`` fence and each owns
+    its HRW shard, advertised in its membership record; every committed
+    round's group id carries the ``.s<k>.`` segment of its members' shared
+    shard; each such round within ``AVG_TOL``; K1-K3 per step; K4 and K5 at
+    the counts the rounds imply. Then the zone-a holder of shard 0 stops
+    gracefully: its partner re-shards, records ``shard_recovered`` (source
+    and latency) and ends with no shard missing. Finally each survivor's
+    ``save_shard_snapshot``, and ``assemble_full`` of zone b's two equal bit
+    for bit to their held slices; cross-zone bytes per committed round
+    (``zone_traffic()``) beside the zones phase's."""
+    import re
+    import shutil
+
+    import numpy as np
+
+    from distributedvolunteercomputing_tpu_torch.training.checkpoint import assemble_full, save_shard_snapshot
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer
+
+    out_dir = HERE / "build" / "chip_smoke"
+    snap_root = out_dir / "zone_shards_snapshots"
+    shutil.rmtree(snap_root, ignore_errors=True)
+    failures = []
+    ids = shard_peer_ids("gpt2_small/params")
+    zone_of = dict(zip(ids, SHARD_ZONES))
+    kept = {pid: collections.deque(maxlen=2) for pid in ids}
+
+    def instrument(vol):
+        pid, avg = vol.cfg.peer_id, vol.averager
+        rec = ProtoRecorder(vol, keep=0)
+        mark = {}
+
+        def before():
+            mark["zt"] = avg.zone_traffic()
+
+        def after(c, result):
+            zt = avg.zone_traffic()
+            c["zone_traffic_cross"] = sum(zt[f"cross_zone_bytes_{d}"] - mark["zt"][f"cross_zone_bytes_{d}"]
+                                          for d in ("sent", "received"))
+            c["zones"] = sorted({zone_of.get(m, "?") for m in c["members"]})
+            # The shard this volunteer advertises as the round ends (a peer's
+            # cached view of it may lag by a heartbeat).
+            c["advertised"] = vol.membership.extra_info.get("shard")
+            if result is not None:
+                kept[pid].append({**c, "payload": flatten_to_buffer(rec.last_params)[0],
+                                  "result": flatten_to_buffer(result)[0]})
+
+        rec.before, rec.after = before, after
+        return rec
+
+    async def maps_agree(vols) -> bool:
+        """Each zone's two holders on one map, and every volunteer's
+        membership snapshot showing each holder's primary shard."""
+        for z in dict.fromkeys(SHARD_ZONES):
+            sms = [v.shard_manager for v in vols if zone_of[v.cfg.peer_id] == z]
+            if any(sm.map is None or len(sm.map.members) != 2 for sm in sms) or \
+                    len({sm.map.fence for sm in sms}) != 1:
+                return False
+        primary = {v.cfg.peer_id: v.shard_manager.primary_shard() for v in vols}
+        for v in vols:
+            peers = await v.membership.alive_peers()
+            if any((peers.get(m) or {}).get("shard") != s for m, s in primary.items()):
+                return False
+        return True
+
+    async def run():
+        vols, paths = await start_volunteers(
+            len(ids), out_dir, "zone_shards", averaging="sync", average_every=AVG_EVERY, join_timeout=4.0,
+            gather_timeout=ZONE_GATHER_S, group_size=2, group_rotation_s=SHARD_ROTATION_S, cross_zone_every_k=1,
+            zone_shards=SHARD_K, model_overrides=dict(DEPTH_CUT),
+            per=lambda i: {"zone": SHARD_ZONES[i], "peer_id": ids[i]},
+        )
+        extra, left = {}, []
+        try:
+            t0 = time.perf_counter()
+            while not await maps_agree(vols):
+                if time.perf_counter() - t0 > SHARD_SETTLE_S:
+                    raise AssertionError("zone_shards: maps did not settle: " + json.dumps(
+                        {v.cfg.peer_id: v.shard_manager.summary() for v in vols}, default=str))
+                await asyncio.sleep(0.5)
+            extra["settle_s"] = time.perf_counter() - t0
+            recs = [instrument(v) for v in vols]
+            for r in recs:
+                r.done = lambda _r: min(x.committed() for x in recs) >= SHARD_COMMITS
+            summaries, run_s, launches = await train_until(vols, recs, "zone_shards")
+            # Checked while all four are up (training stopped, the swarm services run).
+            extra["maps"] = {v.cfg.peer_id: {"fence": v.shard_manager.map.fence, "gen": v.shard_manager.map.gen,
+                                             "owned": v.shard_manager.owned(),
+                                             "hrw": v.shard_manager.map.shards_of(v.cfg.peer_id),
+                                             "advertised": v.membership.extra_info.get("shard")} for v in vols}
+            extra["zone_traffic"] = [v.averager.zone_traffic() for v in vols]
+            # One holder of zone a leaves gracefully; its partner takes over.
+            leaver, partner = vols[0], vols[1]
+            left.append(leaver)
+            await leaver.stop()
+            sm = partner.shard_manager
+            gen0, t0 = sm.map.gen, time.perf_counter()
+            while not (sm.map.gen > gen0 and sm.owned() == list(range(SHARD_K)) and not sm.missing()
+                       and sm.recoveries >= 1):
+                if time.perf_counter() - t0 > SHARD_RECOVER_S:
+                    raise AssertionError(f"zone_shards: {partner.cfg.peer_id} did not take over: {sm.summary()}")
+                await asyncio.sleep(0.5)
+            extra["takeover_s"] = time.perf_counter() - t0
+            extra["recovered_events"] = partner.telemetry.recorder.dump(kinds=["shard_recovered"])
+            extra["partner_summary"] = sm.summary()
+            survivors = vols[1:]
+            step = int(partner.trainer.state.step)
+            extra["snapshots"] = {v.cfg.peer_id: save_shard_snapshot(
+                str(snap_root / v.cfg.peer_id), v.shard_manager.store, v.shard_manager.map, step) for v in survivors}
+            zone_b = [v for v in survivors if zone_of[v.cfg.peer_id] == "b"]
+            full = assemble_full([extra["snapshots"][v.cfg.peer_id] for v in zone_b], zone_b[0].shard_manager.n_elems,
+                                 SHARD_K)
+            extra["assembled_bit_equal"] = {
+                v.cfg.peer_id: all(full[lo:hi].tobytes() == v.shard_manager.store.get(s, allow_replica=False).tobytes()
+                                   for s in v.shard_manager.owned()
+                                   for lo, hi in [v.shard_manager.ranges[s]]) for v in zone_b}
+            extra["assembled_elems"] = int(full.size)
+            del full
+            extra["summaries_sharding"] = {v.cfg.peer_id: v._build_report().get("sharding") for v in survivors}
+            return vols, paths, recs, summaries, run_s, launches, extra
+        finally:
+            await asyncio.gather(*(v.stop() for v in vols if v not in left))
+            shutil.rmtree(snap_root, ignore_errors=True)
+
+    vols, paths, recs, summaries, run_s, launches, extra = asyncio.run(run())
+    agg = [s.get("aggregation", {}) for s in summaries]
+    committed_calls = {pid: [c for c in r.calls if c["ok"]] for pid, r in zip(ids, recs)}
+    row = {"phase": "zone_shards", "model": "gpt2_small", "overrides": DEPTH_CUT, "batch_size": 8, "wire": "bf16",
+           "zones": zone_of,
+           "zone_shards": SHARD_K, "group_size": 2, "cross_zone_every_k": 1, "group_rotation_s": SHARD_ROTATION_S,
+           "average_every": AVG_EVERY, "run_s": run_s, **extra,
+           "committed": {pid: len(cs) for pid, cs in committed_calls.items()},
+           "rounds_skipped": [s["rounds_skipped"] for s in summaries],
+           "round_s": [c["s"] for cs in committed_calls.values() for c in cs],
+           "calls": {pid: [{k: c[k] for k in ("step", "ok", "s", "group_id", "level", "members", "zone_traffic_cross",
+                                              "advertised")}
+                           for c in r.calls] for pid, r in zip(ids, recs)},
+           "aggregation": agg, "launches": launches}
+    row.update(proto_checks("zone_shards", vols, summaries, paths, launches, failures, "gpt2_small", DEPTH_CUT))
+    for z in dict.fromkeys(SHARD_ZONES):
+        fences = {extra["maps"][pid]["fence"] for pid in ids if zone_of[pid] == z}
+        if len(fences) != 1:
+            failures.append(f"zone_shards: zone {z}'s holders hold different fences: {fences}")
+    for pid in ids:
+        m = extra["maps"][pid]
+        if not (m["owned"] == m["hrw"] and len(m["owned"]) == 1 and m["advertised"] == m["owned"][0]):
+            failures.append(f"zone_shards: {pid} does not own and advertise its one HRW shard: {m}")
+    advertised = {(pid, c["group_id"]): c["advertised"] for pid, cs in committed_calls.items() for c in cs}
+    for pid, cs in committed_calls.items():
+        if len(cs) < SHARD_COMMITS:
+            failures.append(f"zone_shards: {pid} committed {len(cs)} rounds < {SHARD_COMMITS}")
+        for c in cs:
+            seg = re.search(r"\.s(\d+)\.", c["group_id"] or "")
+            shard = int(seg.group(1)) if seg else None
+            # What each member advertised as it committed this group's round.
+            adv = {m: advertised.get((m, c["group_id"])) for m in c["members"]}
+            if shard is None or shard != extra["maps"][pid]["owned"][0] or set(adv.values()) != {shard}:
+                failures.append(f"zone_shards: {pid}'s round {c['group_id']} members advertise {adv}")
+    fetched = sum(1 for pid, cs in committed_calls.items() for c in cs if c["members"] and c["members"][0] != pid)
+    expect = {"bf16_encode": 2 * sum(r.groups for r in recs) + fetched,
+              "bf16_fold_chunks": sum(a.get("folder_flushes", 0) for a in agg)}
+    row["codec_launches_expected"] = expect
+    if sum(a.get("aborted_contribs", 0) + a.get("tiles_recovered", 0) + a.get("hedge_duplicates", 0) for a in agg):
+        failures.append("zone_shards: aborted or hedged contributions: the launch counts would not be exact")
+    if {k: launches[k] for k in expect} != expect:
+        failures.append(f"zone_shards: codec launches {[launches[k] for k in expect]} != expected {expect}")
+    values, seen = [], set()
+    for pid in ids:
+        for rec in kept[pid]:
+            group = {m: next((r for r in kept[m] if r["epoch"] == rec["epoch"]), None) for m in rec["members"]}
+            if rec["epoch"] in seen or any(r is None for r in group.values()):
+                continue
+            seen.add(rec["epoch"])
+            values.append({"group_id": rec["group_id"], **group_values(group, rec["members"][0], failures)})
+    if not values:
+        failures.append("zone_shards: no round whose whole group was recorded")
+    row["values"] = values
+    events = extra["recovered_events"]
+    if not events or any(e.get("src") is None or e.get("dt_s") is None for e in events):
+        failures.append(f"zone_shards: no shard_recovered event with a source and latency: {events}")
+    if not extra["assembled_bit_equal"] or not all(extra["assembled_bit_equal"].values()):
+        failures.append(f"zone_shards: zone b's assembled snapshots differ from the held slices: "
+                        f"{extra['assembled_bit_equal']}")
+    cross = [c["zone_traffic_cross"] for cs in committed_calls.values() for c in cs]
+    row["xz_bytes_per_committed_round"] = float(np.mean(cross)) if cross else None
+    row["xz_bytes_per_committed_cross_round_zones_phase"] = CROSS_ZONE_BYTES.get("zones")
+    del kept
+    emit(row)
+    if failures:
+        raise AssertionError(f"zone_shards phase: {failures}")
+    return launches
 
 
 VIT_BATCH = 32  # the entry script's default batch
@@ -4003,6 +4753,19 @@ def build_phase() -> dict:
     return row
 
 
+def timed(name: str, fn, *args, **kwargs):
+    """Run one phase and print its wall seconds on a line of its own (also
+    when it fails), so a run shows where its time went."""
+    t0 = time.perf_counter()
+    ok = False
+    try:
+        out = fn(*args, **kwargs)
+        ok = True
+        return out
+    finally:
+        emit({"phase_wall": name, "seconds": time.perf_counter() - t0, "ok": ok})
+
+
 def reset_all_launch_counts() -> None:
     from distributedvolunteercomputing_tpu_torch.ops import flash_attention as fa
     from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mc
@@ -4030,44 +4793,60 @@ def main() -> int:
     })
     peak = peaks(name)
 
-    build_phase()
-    flagship = check_kernels(fa, FLAGSHIP, torch.bfloat16, True, peak)
-    check_kernels(fa, FLAGSHIP, torch.bfloat16, True, peak, layout="qkv")
-    b, h, _, d = FLAGSHIP
-    for dtype in (torch.bfloat16, torch.float32):
-        for causal in (False, True):
-            check_kernels(fa, (2, h, RAGGED_T, d), dtype, causal, peak)
-    for causal in (False, True):
-        check_kernels(fa, D128, torch.bfloat16, causal, peak)
-    times = time_attention(fa, peak)
-    model_attention = model_kernels_phase(fa, peak)
+    timed("build", build_phase)
 
-    launches = trainer_phase(fa)
-    modes = multi_step_phase(fa)
-    codec = codec_phase(peak)
-    launches.update(averaging_phase())
-    modes["grad_averaging"] = grad_averaging_phase()
-    modes["outer_sync"] = outer_sync_phase()
-    ring = ring_kernels_phase(peak)
-    dp_parity_phase()
+    def kernel_checks():
+        flagship = check_kernels(fa, FLAGSHIP, torch.bfloat16, True, peak)
+        check_kernels(fa, FLAGSHIP, torch.bfloat16, True, peak, layout="qkv")
+        b, h, _, d = FLAGSHIP
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (False, True):
+                check_kernels(fa, (2, h, RAGGED_T, d), dtype, causal, peak)
+        for causal in (False, True):
+            check_kernels(fa, D128, torch.bfloat16, causal, peak)
+        return flagship
+
+    flagship = timed("kernels", kernel_checks)
+    times = timed("attention_timing", time_attention, fa, peak)
+    model_attention = timed("model_kernels", model_kernels_phase, fa, peak)
+
+    launches = timed("trainer", trainer_phase, fa)
+    modes = timed("multi_step", multi_step_phase, fa)
+    codec = timed("codec", codec_phase, peak)
+    launches.update(timed("averaging", averaging_phase))
+    modes["grad_averaging"] = timed("grad_averaging", grad_averaging_phase)
+    modes["outer_sync"] = timed("outer_sync", outer_sync_phase)
+    ring = timed("ring_kernels", ring_kernels_phase, peak)
+    timed("dp_parity", dp_parity_phase)
     devices, _ = ring_ranks(2)
-    ring_counts = averaging_phase(mesh=_mesh(devices), collective="ring", phase="ring_averaging")
+    ring_counts = timed("ring_averaging", averaging_phase, mesh=_mesh(devices), collective="ring",
+                        phase="ring_averaging", overrides=DEPTH_CUT)
     launches.update({k: ring_counts[k] for k in RING_KERNELS})
-    life_launches = lifecycle_phase()
-    protocols = {"gossip": gossip_phase(), "butterfly": butterfly_phase(), "byzantine": byzantine_phase()}
-    faults = {"zones": zones_phase(), "failover": failover_phase(), "hedge": hedge_phase()}
-    mnist_phase()
+    life_launches = timed("lifecycle", lifecycle_phase)
+    protocols = {"gossip": timed("gossip", gossip_phase, model_overrides=dict(DEPTH_CUT)),
+                 "butterfly": timed("butterfly", butterfly_phase),
+                 "byzantine": timed("byzantine", byzantine_phase, overrides=DEPTH_CUT)}
+    faults = {"zones": timed("zones", zones_phase), "failover": timed("failover", failover_phase),
+              "hedge": timed("hedge", hedge_phase)}
+    wires = timed("wires", wires_phase)
+    wires["psgd_byzantine"] = timed("psgd_byzantine", compressed_byzantine_phase, "psgd_byzantine", "powersgd",
+                                    PSGD_RANK)
+    wires["sign_byzantine"] = timed("sign_byzantine", compressed_byzantine_phase, "sign_byzantine", "sign")
+    wires["zone_shards"] = timed("zone_shards", zone_shards_phase)
+    timed("mnist", mnist_phase)
     data_dir = HERE / "build" / "chip_smoke" / "data"
     data_dir.mkdir(parents=True, exist_ok=True)
     try:
-        mnist_file_phase(data_dir)
+        timed("mnist_file", mnist_file_phase, data_dir)
         models = {
-            "vit": vit_phase(),
-            "resnet_sync": averaging_phase(phase="resnet_sync", **RESNET),
-            "bert_gossip": gossip_phase(phase="bert_gossip", **BERT),
-            "llama_byzantine": byzantine_phase(phase="llama_byzantine", overrides=llama2_7b(), **LLAMA),
+            "vit": timed("vit", vit_phase),
+            "resnet_sync": timed("resnet_sync", averaging_phase, phase="resnet_sync", **RESNET),
+            "bert_gossip": timed("bert_gossip", gossip_phase, phase="bert_gossip", model_overrides=dict(DEPTH_CUT),
+                                 **BERT),
+            "llama_byzantine": timed("llama_byzantine", byzantine_phase, phase="llama_byzantine",
+                                     overrides=llama2_7b(), **LLAMA),
         }
-        modes["resnet_file"] = resnet_file_phase(data_dir)
+        modes["resnet_file"] = timed("resnet_file", resnet_file_phase, data_dir)
     finally:
         import shutil
 
@@ -4084,6 +4863,9 @@ def main() -> int:
 
     def fault_launches(kname):
         return {phase: counts.get(kname, 0) for phase, counts in faults.items()}
+
+    def wire_launches(kname):
+        return {phase: counts.get(kname, 0) for phase, counts in wires.items()}
 
     def model_shapes(kname):
         """K1-K3 at each model's main-path shape: error, device ms, plain,
@@ -4106,7 +4888,7 @@ def main() -> int:
             "launches": launches[kname], "launches_lifecycle": life_launches[kname],
             "launches_protocols": protocol_launches(kname), "launches_models": model_launches(kname),
             "launches_trainer_modes": mode_launches(kname), "launches_faults": fault_launches(kname),
-            "shapes_models": model_shapes(kname), "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
+            "launches_wires": wire_launches(kname), "shapes_models": model_shapes(kname), "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
             "ms_method": DEVICE_MS_METHOD, "ms_qkv_view": times["qkv"][kname]["ms"],
             "plain_ms": t[kname]["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": t[lib]["ms"], "library_ms_qkv_view": times["qkv"][lib]["ms"],
@@ -4119,7 +4901,7 @@ def main() -> int:
         "replaces": CODEC_KERNELS["bf16_encode"][0], "launches": launches["bf16_encode"],
         "launches_lifecycle": life_launches["bf16_encode"], "launches_protocols": protocol_launches("bf16_encode"),
         "launches_models": model_launches("bf16_encode"), "launches_trainer_modes": mode_launches("bf16_encode"),
-        "launches_faults": fault_launches("bf16_encode"),
+        "launches_faults": fault_launches("bf16_encode"), "launches_wires": wire_launches("bf16_encode"),
         "max_abs_err": codec["encode_max_abs_err"], "n": k4["n"], "ms": k4["ms"], "ms_method": k4["ms_method"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"], "library_call": k4["library_call"],
@@ -4129,6 +4911,7 @@ def main() -> int:
         "replaces": CODEC_KERNELS["bf16_fold_chunks"][0], "launches": launches["bf16_fold_chunks"],
         "launches_lifecycle": life_launches["bf16_fold_chunks"], "launches_models": model_launches("bf16_fold_chunks"),
         "launches_trainer_modes": mode_launches("bf16_fold_chunks"), "launches_faults": fault_launches("bf16_fold_chunks"),
+        "launches_wires": wire_launches("bf16_fold_chunks"),
         "max_abs_err": max(k5["max_abs_err"], codec["fold_max_abs_err"]),
         "per": f"staged flush of {k5['chunks']} chunks of 1 MiB ({k5['distinct_tiles']} tiles)",
         "ms": k5["device_ms"], "ms_method": "profiler device time of bf16_fold_kernel per flush",
@@ -4146,6 +4929,7 @@ def main() -> int:
             "name": kname, "id": kid, "route": "cuda", "source": RING_SOURCE, "replaces": replaces,
             "launches": launches[kname], "launches_models": model_launches(kname),
             "launches_trainer_modes": mode_launches(kname), "launches_faults": fault_launches(kname),
+            "launches_wires": wire_launches(kname),
             "max_abs_err": max(c["max_abs_err"] for rows in checks for c in rows),
             "nd": 2, "cross_card": flag["cross_card"],
             "design": "stepwise, across cards" if flag["cross_card"] else "one launch, every rank on one card",

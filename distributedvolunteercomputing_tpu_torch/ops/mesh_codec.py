@@ -15,6 +15,10 @@ K5     ``_dec_axpy_kernel``         ``bf16_fold_chunks`` / ``fold_chunks_plain``
                                     ``decode_axpy_plain`` (flat buffers)
 =====  ==========================  ==================================================
 
+PowerSGD's power iteration and reconstruction (``low_rank_iterate``,
+``lowrank_reconstruct``) are ``torch.linalg.qr`` and matmuls in f32 on the
+codec's device, as the reference computes them in jnp outside any kernel.
+
 Both are bound by bytes on an H100 (K4 ~223 us over the 124.4 M floats of
 gpt2_small, K5 ~25 us per 16 MiB flush of 1 MiB chunks); the source's header
 says more and PERF.md has the measured times. K5 folds a whole staged batch
@@ -77,6 +81,11 @@ from distributedvolunteercomputing_tpu_torch.utils.torchenv import DeviceLike, r
 FOLDER_FLUSH_BYTES = 16 << 20
 
 LAUNCHES: Dict[str, int] = {"bf16_encode": 0, "bf16_fold_chunks": 0}
+# PowerSGD's low-rank ops run on the device as library calls (QR and matmul,
+# as the reference runs them in jnp outside any Pallas kernel): counted per
+# device call, apart from the kernels, and reported beside them in
+# ``MeshCodec.stats()["launches"]``.
+LOW_RANK_CALLS: Dict[str, int] = {"low_rank_iterate": 0, "lowrank_reconstruct": 0}
 _launch_lock = threading.Lock()  # the codec launches from several worker threads
 # K5's chunk table per launch (csrc/bf16_codec.cu kFoldWords), int32 words:
 # 3 per tile, 3 per chunk and one more. Must equal the kernel's: the launcher
@@ -86,8 +95,9 @@ FOLD_WORDS = 2032
 
 def reset_launch_counts() -> None:
     with _launch_lock:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
+        for counts in (LAUNCHES, LOW_RANK_CALLS):
+            for name in counts:
+                counts[name] = 0
 
 
 class MeshCodecError(RuntimeError):
@@ -350,6 +360,9 @@ class MeshCodec:
             if collective == "ring":
                 _enable_ring_peers(self.ranks)
         self._fail_injected = 0
+        # This codec's device low-rank calls (``LOW_RANK_CALLS`` counts the
+        # process's, over every codec).
+        self.low_rank_calls = dict.fromkeys(LOW_RANK_CALLS, 0)
         self.ops_mesh = 0
         self.ops_host = 0
         self.device_s = 0.0
@@ -374,8 +387,9 @@ class MeshCodec:
             "device_s": round(self.device_s, 6),
             "ring_flushes": int(self.ring_flushes),
             "ring_results": int(self.ring_results),
-            # K4/K5 launches of this process (``LAUNCHES``), as a report shows them.
-            "launches": dict(LAUNCHES),
+            # K4/K5 launches of this process (``LAUNCHES``) and its device
+            # low-rank calls (``LOW_RANK_CALLS``), as a report shows them.
+            "launches": {**LAUNCHES, **LOW_RANK_CALLS},
         }
 
     # -- device ops --------------------------------------------------------
@@ -532,6 +546,47 @@ class MeshCodec:
             lambda: self._map_cols(np.asarray(bits_stack, np.uint16).view(np.int16), widen_bf16)
         )
         return self.aggregate(dec, method, **kw)
+
+    # -- PowerSGD ----------------------------------------------------------
+
+    def _count_low_rank(self, name: str) -> None:
+        with _launch_lock:
+            LOW_RANK_CALLS[name] += 1
+            self.low_rank_calls[name] += 1
+
+    def low_rank_iterate(self, mat: np.ndarray, q: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """One PowerSGD power iteration: P = QR-orthonormalize(M·Q), Q' = Mᵀ·P
+        (Q' carries the scale). On the device in f32 on the codec's first
+        rank; a column of P may differ in sign from the host's QR, and Q'
+        with it, so P·Q'ᵀ does not change."""
+
+        def dev() -> Tuple[np.ndarray, np.ndarray]:
+            m_ = self._put(np.ascontiguousarray(mat, np.float32))
+            q_ = self._put(np.ascontiguousarray(q, np.float32))
+            p_ = torch.linalg.qr(m_ @ q_, mode="reduced").Q
+            q_new = m_.T @ p_
+            self._count_low_rank("low_rank_iterate")
+            return (
+                np.ascontiguousarray(p_.cpu().numpy(), np.float32),
+                np.ascontiguousarray(q_new.cpu().numpy(), np.float32),
+            )
+
+        def host() -> Tuple[np.ndarray, np.ndarray]:
+            p, _ = np.linalg.qr((mat @ q).astype(np.float32, copy=False))
+            p = np.ascontiguousarray(p, np.float32)
+            return p, mat.T @ p
+
+        return self._run(dev, host)
+
+    def lowrank_reconstruct(self, p: np.ndarray, q: np.ndarray) -> np.ndarray:
+        """Dense rank-r reconstruction (P·Qᵀ).ravel(), the decoder's matmul."""
+
+        def dev() -> np.ndarray:
+            out = self._put(np.ascontiguousarray(p, np.float32)) @ self._put(np.ascontiguousarray(q, np.float32)).T
+            self._count_low_rank("lowrank_reconstruct")
+            return out.cpu().numpy().ravel()
+
+        return self._run(dev, lambda: (p @ q.T).ravel())
 
     # -- streaming mean folder --------------------------------------------
 

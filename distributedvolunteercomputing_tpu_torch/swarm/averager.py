@@ -1,9 +1,5 @@
 """GradientAverager family: the four WAN averaging modes of the reference.
 
-Ported: the four modes on the f32 and bf16 wires, with the resilience,
-failure-detector and controller collaborators; the other wires and the shard
-manager raise at construction until their slices arrive.
-
 Reference parity (BASELINE.json:5,7-11):
 - ``SyncAverager``      — "synchronous GradientAverager" (config 2)
 - ``GossipAverager``    — "async gossip averaging" (config 3)
@@ -220,12 +216,6 @@ class AveragerBase:
         controller=None,
         shard_manager=None,
     ):
-        # Not ported yet: the other wires and zone sharding. Accepting one
-        # and ignoring it would change the round silently.
-        if wire not in ("f32", "bf16"):
-            raise NotImplementedError(f"wire {wire!r} is not ported yet; ported: f32, bf16")
-        if shard_manager is not None:
-            raise NotImplementedError("shard_manager (zone sharding) is not ported yet: pass None")
         if wire not in ("f32", "bf16", "q8", "topk", "powersgd", "sign"):
             raise ValueError(f"unknown wire dtype {wire!r}")
         if wire == "sign":

@@ -25,13 +25,17 @@ announce (and, in gossip, the first publish), the watchdog's probes, and
 the report loop.
 
 Ported so far: every averaging mode (sync, gossip, butterfly, byzantine)
-on the f32 or bf16 wire, of params or (``average_what="grads"``) of every
+on every wire of the reference (f32, bf16 and q8; the gradient compressors
+topk, powersgd and sign with error feedback, PowerSGD's power iteration on
+the codec's device), of params or (``average_what="grads"``) of every
 step's gradients, the step and wall-clock cadences, blocking or overlapped
 rounds, the outer Nesterov optimizer over params rounds, multi-step calls,
 ``.npz`` data with a held-out eval stream, the robust estimators, the
 resilience layer and controller, rotating group schedules
 (``group_size``, ``group_rotation_s``) and their zone hierarchy (``zone``,
-``cross_zone_every_k``), a local data-parallel mesh, the coordinator and
+``cross_zone_every_k``), zone-sharded training (``zone_shards``: a
+``ShardManager`` holds this volunteer's shards and scopes its groups), a
+local data-parallel mesh, the coordinator and
 control plane, checkpoints, state sync and the reference's fault-injection
 hooks (read from the environment, test-only):
 ``DVC_CHAOS_CONTRIB_SCALE=<x>`` contributes the real tree scaled by x;
@@ -39,10 +43,9 @@ hooks (read from the environment, test-only):
 ``DVC_CHAOS_STATE_POISON=<lie>,<scale>`` serves state sync at step + lie
 with the tree scaled; ``DVC_CLOCK_SKEW_S=<s>`` skews the local clock under
 the wall-clock cadence; the averager's ``DVC_CHAOS_LEADER_DIE_PHASE=<phase>``
-SIGKILLs a sync leader at that round phase. The other wires, zone sharding,
-FSDP and sequence parallelism come with later slices; ``VolunteerConfig``
-raises ``NotImplementedError`` when one of them is set away from its
-default.
+SIGKILLs a sync leader at that round phase. FSDP and sequence parallelism
+come with a later slice; ``VolunteerConfig`` raises ``NotImplementedError``
+when one of them is set away from its default.
 """
 
 from __future__ import annotations
@@ -77,11 +80,11 @@ from distributedvolunteercomputing_tpu_torch.utils.torchenv import DeviceLike
 log = get_logger(__name__)
 
 PORTED = (
-    "averaging none|sync|gossip|butterfly|byzantine, wire f32|bf16, average_what "
-    "params|grads, the step and wall-clock cadences, overlap, steps_per_call, the outer "
-    "optimizer, .npz data, eval, robust methods, the resilience layer and controller, "
-    "group schedules and zones, a dp mesh, the coordinator and control plane, "
-    "checkpoints, state sync, telemetry, health probe and watchdog"
+    "averaging none|sync|gossip|butterfly|byzantine, wire f32|bf16|q8|topk|powersgd|sign, "
+    "average_what params|grads, the step and wall-clock cadences, overlap, steps_per_call, "
+    "the outer optimizer, .npz data, eval, robust methods, the resilience layer and "
+    "controller, group schedules and zones, zone sharding, a dp mesh, the coordinator "
+    "and control plane, checkpoints, state sync, telemetry, health probe and watchdog"
 )
 
 # The wall-clock cadence AUTO resolves to for butterfly params-mode swarms.
@@ -90,11 +93,6 @@ DEFAULT_BUTTERFLY_INTERVAL_S = 20.0
 # The reference's options that later slices carry: field -> (default, what).
 # Set away from its default, each raises NotImplementedError.
 LATER_SLICES: Dict[str, tuple] = {
-    "topk_frac": (0.01, "the topk wire"),
-    "topk_warmup_rounds": (0, "the topk wire"),
-    "powersgd_rank": (4, "the powersgd wire"),
-    "allow_unrobust_topk": (False, "the topk wire"),
-    "zone_shards": (0, "zone sharding"),
     "fsdp": (False, "fsdp"),
     "seq_sharded": (False, "sequence parallelism"),
     "sp_impl": ("ring", "sequence parallelism"),
@@ -125,7 +123,7 @@ class VolunteerConfig:
     # Overlap rounds with local steps (the reference's default, on).
     overlap: bool = True
     max_staleness: int = 0  # steps; 0 = unbounded
-    wire: str = "f32"  # f32 | bf16
+    wire: str = "f32"  # f32 | bf16 | q8 | topk | powersgd | sign
     topk_frac: float = 0.01
     topk_warmup_rounds: int = 0
     powersgd_rank: int = 4
@@ -214,8 +212,6 @@ class VolunteerConfig:
             self.peer_id = f"vol-{uuid.uuid4().hex[:8]}"
         if self.averaging not in ("none", "sync", "gossip", "butterfly", "byzantine"):
             raise ValueError(f"unknown averaging {self.averaging!r}")
-        if self.wire not in ("f32", "bf16"):
-            raise NotImplementedError(f"wire {self.wire!r} is not ported yet; ported: {PORTED}")
         if self.average_interval_s is None:
             # AUTO: butterfly is the heterogeneous-swarm config, where the
             # step cadence parks fast peers; every other mode keeps it.
@@ -248,6 +244,27 @@ class VolunteerConfig:
                 "schedules the multi-group grid; single-group swarms have "
                 "no grid to layer)"
             )
+        if self.zone_shards < 0:
+            raise ValueError(
+                f"zone_shards must be >= 0 (0 = unsharded), got "
+                f"{self.zone_shards}"
+            )
+        if self.zone_shards:
+            # The shard domain is the zone, and the shard-scoped rendezvous
+            # lives in the group schedule: without either the flag would
+            # train a full replica.
+            if not self.zone:
+                raise ValueError(
+                    "--zone-shards requires --zone (the zone is the shard "
+                    "domain: shards are held within a zone and replicated "
+                    "across zones)"
+                )
+            if self.averaging != "none" and not self.group_size:
+                raise ValueError(
+                    "--zone-shards with averaging requires --group-size "
+                    "(same-shard holders rendezvous through the shard-"
+                    "scoped group schedule)"
+                )
         if self.group_size:
             # Round-structured gather modes only: gossip is pairwise and
             # "none" does not average.
@@ -320,6 +337,55 @@ class VolunteerConfig:
                     "not a common aggregate — momentum over them amplifies "
                     "disagreement)"
                 )
+        if self.wire == "powersgd":
+            # Low-rank of a parameter tree would truncate the model itself,
+            # and pairwise protocols compound truncation per hop; robust
+            # estimators are fine (reconstructions are dense).
+            if self.average_what != "grads":
+                raise ValueError("wire='powersgd' requires --average-what grads")
+            if self.averaging not in ("sync", "byzantine"):
+                raise ValueError(
+                    "wire='powersgd' requires --averaging sync or byzantine"
+                )
+            if self.powersgd_rank < 1:
+                raise ValueError(
+                    f"powersgd_rank must be >= 1, got {self.powersgd_rank}"
+                )
+        if self.wire == "sign":
+            # 1-bit EF-signSGD is a gradient compressor for gather-style
+            # protocols; robust estimators are allowed (dense ±scale rows).
+            if self.average_what != "grads":
+                raise ValueError("wire='sign' requires --average-what grads")
+            if self.averaging not in ("sync", "byzantine"):
+                raise ValueError(
+                    "wire='sign' requires --averaging sync or byzantine"
+                )
+        if self.wire == "topk":
+            # Top-k of a parameter tree would zero most of the model;
+            # pairwise protocols compound truncation per hop; robust
+            # estimators over sparse supports aggregate to zero.
+            if self.average_what != "grads":
+                raise ValueError("wire='topk' requires --average-what grads")
+            if self.averaging not in ("sync", "byzantine"):
+                raise ValueError(
+                    "wire='topk' requires --averaging sync or byzantine"
+                )
+            if self.topk_warmup_rounds < 0:
+                raise ValueError(
+                    f"topk_warmup_rounds must be >= 0, got {self.topk_warmup_rounds}"
+                )
+            if self.averaging == "byzantine":
+                if self.method != "mean":
+                    raise ValueError("wire='topk' requires --method mean")
+                if not self.allow_unrobust_topk:
+                    raise ValueError(
+                        "--averaging byzantine --wire topk runs a plain "
+                        "weighted mean (topk forces method='mean'), i.e. NO "
+                        "Byzantine tolerance; use --averaging sync with "
+                        "topk, or pass --allow-unrobust-topk if you want "
+                        "byzantine's full-mesh/first-write-wins transport "
+                        "properties without a robust estimator"
+                    )
 
 
 def _parse_addrs(spec: Optional[str]) -> list:
@@ -370,6 +436,7 @@ class Volunteer:
         self.resilience_policy = None
         self.controller = None
         self.averager = None
+        self.shard_manager = None  # ShardManager when zone_shards
         self.state_sync: Optional[StateSyncService] = None
         self.trainer: Optional[Trainer] = None
         self._report_task: Optional[asyncio.Task] = None
@@ -479,7 +546,8 @@ class Volunteer:
             kw = dict(
                 min_group=cfg.min_group, max_group=cfg.max_group,
                 join_timeout=cfg.join_timeout, gather_timeout=cfg.gather_timeout,
-                wire=cfg.wire, adaptive_timeout=cfg.adaptive_timeout,
+                wire=cfg.wire, topk_frac=cfg.topk_frac, topk_warmup_rounds=cfg.topk_warmup_rounds,
+                powersgd_rank=cfg.powersgd_rank, adaptive_timeout=cfg.adaptive_timeout,
                 # Round deadlines on the consensus clock when there is one.
                 clock=self.clocksync.now if self.clocksync is not None else None,
                 round_deadline_s=cfg.round_deadline_s or None,
@@ -499,7 +567,9 @@ class Volunteer:
                     min_size=cfg.min_group,
                     cross_zone_every_k=cfg.cross_zone_every_k,
                 )
-            if cfg.averaging == "byzantine" and cfg.method != "mean":
+            if cfg.averaging == "byzantine" and (cfg.method != "mean" or cfg.wire == "topk"):
+                # Passed explicitly for topk: the Byzantine averager's default
+                # is trimmed_mean, which the topk wire must not run under.
                 kw["method"] = cfg.method
             if cfg.method_kw:
                 kw["method_kw"] = dict(cfg.method_kw)
@@ -603,6 +673,8 @@ class Volunteer:
             maybe_restore(self.trainer, cfg.checkpoint_dir)
         if cfg.averaging != "none":
             await self._sync_state(bundle)
+        if cfg.zone_shards:
+            await self._start_sharding()
         if self.telemetry.watchdog.enabled:
             # Probes over the surfaces built above, ticked once per report
             # beat (_build_report).
@@ -636,7 +708,7 @@ class Volunteer:
         # Serve state over the averaging wire's codec (bf16 halves a rejoin).
         self.state_sync = StateSyncService(
             self.transport, self.dht, cfg.peer_id, namespace=cfg.model,
-            wire=cfg.wire if cfg.wire == "bf16" else "f32",
+            wire=cfg.wire if cfg.wire in ("bf16", "q8") else "f32",
         )
 
         def provider():
@@ -672,6 +744,48 @@ class Volunteer:
             # faster peers succeed while this one is still starting.
             _, snap = self.trainer.host_snapshot()
             self.averager.publish(snap)
+
+    async def _start_sharding(self) -> None:
+        """Zone-sharded training, the reference's autopilot: the manager
+        over this volunteer's transport, DHT and membership takes its HRW
+        shard(s) of the averaged subtree, seeds them from the post-state-sync
+        snapshot (flattened in sorted-key order, the reference's leaf order,
+        so the ranges cut the same tensors), advertises its primary shard
+        (the shard-scoped rendezvous reads it), and runs the maintenance
+        beat that re-shards and recovers on churn."""
+        from distributedvolunteercomputing_tpu_torch.swarm.sharding import ShardManager, shard_slice
+        from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_leaves
+
+        cfg = self.cfg
+        _, snap = self.trainer.host_snapshot()
+        leaves = tree_leaves(snap)
+        flat = (
+            np.concatenate([np.asarray(a, np.float32).ravel() for a in leaves])
+            if leaves else np.zeros(0, np.float32)
+        )
+        self.shard_manager = sm = ShardManager(
+            self.transport, self.dht, self.membership, cfg.peer_id,
+            n_elems=flat.size, k=cfg.zone_shards,
+            namespace=f"{cfg.model}/{cfg.average_what}",
+            zone=cfg.zone,
+            telemetry=self.telemetry,
+            resilience=self.resilience_policy,
+            controller=self.controller,
+        )
+        await sm.reshard(recover=False)
+        for s in sm.owned():
+            sm.store.put(s, shard_slice(flat, sm.ranges, s).copy())
+        await sm.announce()
+        if self.averager is not None:
+            self.averager.shard_manager = sm
+            self.telemetry.registry.source("sharding", sm.summary)
+        sm.start_maintenance(interval_s=max(cfg.heartbeat_ttl / 3.0, 2.0))
+        log.info(
+            "zone-sharded: k=%d zone=%s own=%s (%d/%d elems, gen %d)",
+            sm.k, sm.zone, sm.owned(),
+            sum(hi - lo for lo, hi in (sm.ranges[s] for s in sm.owned())),
+            sm.n_elems, sm.map.gen,
+        )
 
     def _build_resilience_layer(self) -> None:
         """The phi-accrual detector and the adaptive policy and, with
@@ -736,6 +850,11 @@ class Volunteer:
         health = self.telemetry.health.summary()
         if health is not None:
             report["health"] = health
+        sm = self.shard_manager or getattr(self.averager, "shard_manager", None)
+        if sm is not None:
+            # Zone-sharded training gauges (map generation, owned and missing
+            # shards, recovery latencies); absent on unsharded swarms.
+            report["sharding"] = sm.summary()
         failover_stats = getattr(self.averager, "failover_stats", None)
         if failover_stats is not None:
             fo = failover_stats()
@@ -810,6 +929,14 @@ class Volunteer:
         self.summary = await asyncio.to_thread(self._train_blocking)
         if self.averager is not None:
             self.summary.update(self.averager.stats())
+        if self.shard_manager is not None:
+            # Zone-sharding outcome gauges on the done line.
+            sm = self.shard_manager
+            self.summary["shard_gen"] = float(sm.map.gen if sm.map is not None else -1)
+            self.summary["shard_reshardings"] = float(sm.resharding_count)
+            self.summary["shard_recoveries"] = float(sm.recoveries)
+            self.summary["shard_recoveries_failed"] = float(sm.recoveries_failed)
+            self.summary["shard_missing"] = float(len(sm.missing()))
         # The process's K1-K3 launches (the codec's K4/K5 are in mesh_codec).
         self.summary["flash_launches"] = dict(flash_attention.LAUNCHES)
         self.summary["wan_bytes_sent"] = self.transport.bytes_sent
@@ -834,6 +961,11 @@ class Volunteer:
             self._report_task.cancel()
         if self.clocksync is not None:
             self.clocksync.stop()
+        if self.shard_manager is not None:
+            try:
+                await self.shard_manager.stop()
+            except Exception:
+                pass
         if self.membership is not None:
             try:
                 await self.membership.leave()

@@ -16,6 +16,11 @@ and ``.wire.npz`` sidecars beside the directory. A snapshot is written into
 a temporary directory whose name ``latest_step`` ignores and renamed into
 place, so a reader never sees a torn one. A mesh trainer saves rank 0's
 replica (the replicas are identical) and restores into every replica.
+
+A zone-sharded volunteer also snapshots the shard slices it owns
+(``save_shard_snapshot``: one ``.npy`` per shard and a ``meta.json``, as the
+reference writes them); ``assemble_full`` rebuilds the flat buffer from a
+zone's snapshots.
 """
 
 from __future__ import annotations
@@ -144,9 +149,11 @@ def _wire_state_path(snapshot_path: str) -> str:
 
 
 def _save_wire_state(trainer, snapshot_path: str) -> None:
-    """Persist the averager's compressor state beside the snapshot. The
-    volunteer attaches its averager as ``trainer._wire_averager``; the
-    ported wires (f32, bf16) are stateless, so no sidecar is written yet."""
+    """Persist the averager's compressor state beside the snapshot: the
+    topk and sign wires' error-feedback residual and PowerSGD's warm Q (the
+    f32, bf16 and q8 wires are stateless and write none). The volunteer
+    attaches its averager as ``trainer._wire_averager``; library users
+    without a swarm have no sidecar."""
     avg = getattr(trainer, "_wire_averager", None)
     if avg is None:
         return
@@ -415,3 +422,88 @@ def maybe_restore(trainer, ckpt_dir: str) -> bool:
     log.info("restored checkpoint step %d from %s (%.2fs)", step, path, restore_s)
     return True
 
+
+# -- sharded snapshots (zone-sharded training, swarm/sharding.py) ------------
+#
+# A sharded volunteer snapshots its OWN shard slices (one .npy per shard plus
+# a json meta carrying the fenced map generation), and a zone's worth of
+# shard snapshots reassembles into the full flat buffer. Plain numpy files,
+# as the reference's: a shard is one contiguous f32 slice with no tree
+# structure. They exist so a cold-started zone (every holder gone at once,
+# the one case the recovery ladder cannot close) resumes from local disk.
+
+
+def save_shard_snapshot(ckpt_dir: str, store, smap, step: int) -> str:
+    """Write every OWNED shard slice + meta under ``ckpt_dir/shards/``.
+    Returns the snapshot directory. Meta pins (k, gen, zone members) so a
+    restore into a differently-cut world is refused loudly."""
+    import json
+
+    d = os.path.join(ckpt_dir, "shards", f"step_{int(step):010d}")
+    os.makedirs(d, exist_ok=True)
+    owned = []
+    for s in store.held():
+        arr = store.get(s, allow_replica=False)
+        if arr is None:
+            continue
+        np.save(os.path.join(d, f"shard_{s}.npy"), np.asarray(arr, np.float32))
+        owned.append(int(s))
+    meta = {
+        "step": int(step),
+        "k": int(smap.k),
+        "gen": int(smap.gen),
+        "domain": smap.domain,
+        "members": list(smap.members),
+        "owned": owned,
+    }
+    with open(os.path.join(d, "meta.json"), "w") as fh:
+        json.dump(meta, fh)
+    log.info("saved shard snapshot step %d (%d shard(s)) to %s", step, len(owned), d)
+    return d
+
+
+def load_shard_snapshot(snap_dir: str, k: int) -> dict:
+    """Load one holder's shard snapshot: {"meta": ..., "shards": {s: arr}}.
+    Refuses a snapshot cut for a different K: shard ranges depend only on
+    (n_elems, K), so a K mismatch means the slices are not the same tensor
+    regions."""
+    import json
+
+    with open(os.path.join(snap_dir, "meta.json")) as fh:
+        meta = json.load(fh)
+    if int(meta.get("k", -1)) != int(k):
+        raise ValueError(
+            f"shard snapshot k={meta.get('k')} != configured k={k}: "
+            "refusing a differently-cut restore"
+        )
+    shards = {}
+    for s in meta.get("owned", []):
+        p = os.path.join(snap_dir, f"shard_{int(s)}.npy")
+        if os.path.exists(p):
+            shards[int(s)] = np.load(p)
+    return {"meta": meta, "shards": shards}
+
+
+def assemble_full(snap_dirs, n_elems: int, k: int) -> np.ndarray:
+    """Reassemble the full flat buffer from a zone's shard snapshots (one
+    directory per holder; later directories win ties). Raises if any shard
+    range is missing: a partial assembly is not a model."""
+    from distributedvolunteercomputing_tpu_torch.swarm.sharding import shard_ranges
+
+    ranges = shard_ranges(int(n_elems), int(k))
+    buf = np.zeros(int(n_elems), np.float32)
+    got = set()
+    for d in snap_dirs:
+        snap = load_shard_snapshot(d, k)
+        for s, arr in snap["shards"].items():
+            lo, hi = ranges[s]
+            if arr.size != hi - lo:
+                raise ValueError(
+                    f"shard {s} snapshot has {arr.size} elems, range needs {hi - lo}"
+                )
+            buf[lo:hi] = arr
+            got.add(s)
+    missing = [s for s in range(k) if s not in got]
+    if missing:
+        raise ValueError(f"shard snapshot set is missing shard(s) {missing}")
+    return buf

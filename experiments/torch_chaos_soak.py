@@ -3,11 +3,12 @@
 whose modules the port carries, on port averagers over ``ChaosTransport``s
 with the codec on the card.
 
-    python3 experiments/torch_chaos_soak.py                 # the four campaigns
+    python3 experiments/torch_chaos_soak.py                 # the five campaigns
     python3 experiments/torch_chaos_soak.py --quick         # short ones
     python3 experiments/torch_chaos_soak.py --campaign tail --device cpu
+    python3 experiments/torch_chaos_soak.py --quick --shard  # the shard campaign alone
 
-Campaigns (``--campaign``, repeatable; default all four), each the
+Campaigns (``--campaign``, repeatable; default all five), each the
 reference's own code and verdict:
 
 - ``straggler``: four volunteers, one delayed x10 under a seeded fault
@@ -23,12 +24,15 @@ reference's own code and verdict:
 - ``tail``: hedged per-tile recovery against the drop-the-straggler
   baseline at one static round deadline under heavy-tailed links
   (``tail_campaign``).
+- ``shard`` (``--shard``): three zones of two shard holders on the
+  zone-sharded schedule; each kill round the shard-0 trio's leader dies at
+  an instrumented phase and its zone mate re-shards and recovers the
+  victim's latest shard bytes (``shard_campaign``).
 
 The reference script's text is loaded with its import root rewritten to the
 port (as the CPU tests run the reference's test files) and run in a
-namespace of its own; its zone-sharding import, whose module the port does
-not carry yet, is replaced by names that raise, and its shard and
-control-plane campaigns are never called. Every ``SyncAverager`` the
+namespace of its own; its control-plane and other campaigns are never
+called. Every ``SyncAverager`` the
 campaigns build takes ``--wire`` (bf16 by default) and the process codec,
 which this script configures on ``--device`` (the card unless ``cpu`` is
 asked for) with the device backend: K4 encodes and K5 folds on the card.
@@ -52,15 +56,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
-CAMPAIGNS = ("straggler", "failover", "multigroup", "tail")
-# The reference script's import block for zone sharding (not ported yet).
-_SHARDING_IMPORT = re.compile(
-    r"from distributedvolunteercomputing_tpu_torch\.swarm\.sharding import \([^)]*\)[^\n]*\n"
-)
-
-
-def _unported(*_a, **_k):
-    raise NotImplementedError("zone sharding (swarm/sharding.py) is not ported yet")
+CAMPAIGNS = ("straggler", "failover", "multigroup", "tail", "shard")
 
 
 def load_campaigns(wire: str = "bf16") -> dict:
@@ -74,10 +70,7 @@ def load_campaigns(wire: str = "bf16") -> dict:
     with open(path) as f:
         src = re.sub(r"\bdistributedvolunteercomputing_tpu(?=[.\s])", "distributedvolunteercomputing_tpu_torch",
                      f.read())
-    src, n = _SHARDING_IMPORT.subn("ShardManager = ShardMap = shard_slice = _unported\n", src)
-    if n != 1:
-        raise RuntimeError("chaos_soak.py's zone-sharding import changed: update this script")
-    ns = {"__name__": "torch_chaos_soak_reference", "__file__": path, "_unported": _unported}
+    ns = {"__name__": "torch_chaos_soak_reference", "__file__": path}
     exec(compile(src, path, "exec"), ns)
 
     class WireAverager(SyncAverager):
@@ -127,13 +120,16 @@ def verdicts(ns: dict, name: str, result: dict) -> dict:
                 and mg["max_groups_seen"] >= 4
             ),
         }
+    if name == "shard":
+        return ns["shard_verdict"](result)
     return ns["tail_verdict"](result)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--campaign", action="append", choices=CAMPAIGNS, default=None,
-                    help="campaign to run (repeatable; default all four)")
+                    help="campaign to run (repeatable; default all five)")
+    ap.add_argument("--shard", action="store_true", help="the shard campaign alone (the reference's --shard)")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="where the codec runs: the card (default; exits when there is none) or the CPU")
     ap.add_argument("--wire", default="bf16", choices=("f32", "bf16"))
@@ -146,11 +142,15 @@ def main() -> int:
     ap.add_argument("--failover-rounds", type=int, default=20)
     ap.add_argument("--multigroup-rounds", type=int, default=6)
     ap.add_argument("--tail-rounds", type=int, default=12)
+    ap.add_argument("--shard-rounds", type=int, default=6)
     ap.add_argument("--out", default=os.path.join(REPO, "build", "torch_chaos_soak.json"))
     args = ap.parse_args()
     if args.quick:
         args.warmup_rounds, args.faulted_rounds, args.blocking_rounds = 6, 10, 3
         args.failover_rounds, args.multigroup_rounds, args.tail_rounds = 5, 3, 6
+        args.shard_rounds = 3
+    if args.shard:
+        args.campaign = ["shard"]
 
     sys.path.insert(0, REPO)
     import torch
@@ -165,7 +165,8 @@ def main() -> int:
     codec = mc.configure(device=device, backend="device")
     ns = load_campaigns(args.wire)
     runners = {"straggler": ns["campaign"], "failover": ns["failover_campaign"],
-               "multigroup": ns["multigroup_campaign"], "tail": ns["tail_campaign"]}
+               "multigroup": ns["multigroup_campaign"], "tail": ns["tail_campaign"],
+               "shard": ns["shard_campaign"]}
     out = {"device": str(device), "device_name": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu",
            "wire": args.wire, "quick": args.quick, "campaigns": {}}
     ok = True

@@ -25,7 +25,20 @@ held-out eval stream; ``--steps-per-call N`` fuses up to N steps per call.
 ``--group-size N`` (sync, byzantine, butterfly) splits the swarm into
 rotating groups of about N (``--group-rotation-s`` the rotation), and
 ``--zone Z --cross-zone-every-k K`` keeps every group inside one zone except
-on every K-th rotation.
+on every K-th rotation; ``--zone-shards K`` (with ``--zone`` and, when
+averaging, ``--group-size``) holds one of K shards of the averaged tree per
+zone member and rendezvous same-shard holders.
+The wires: ``--wire f32|bf16|q8`` for params or gradients; ``--wire topk``
+(``--topk-frac``, ``--topk-warmup-rounds``; under byzantine only with
+``--method mean --allow-unrobust-topk``), ``--wire powersgd`` (``--psgd-rank``)
+and ``--wire sign`` compress gradients (``--average-what grads``, sync or
+byzantine) with error feedback; PowerSGD's power iteration runs on the card.
+Config 8's Byzantine arms, for example:
+
+    python run_volunteer_torch.py --model gpt2_small --averaging byzantine \
+        --average-what grads --method trimmed_mean --method-kw trim=1 \
+        --wire powersgd --psgd-rank 4 --coordinator 127.0.0.1:9000
+
 Without ``--model`` it trains the reference's default, mnist_mlp
 (capability config 1); ``--list-models`` prints the ported zoo.
 
@@ -44,11 +57,6 @@ import json
 
 # dest -> what it belongs to, for the flags whose slice is not ported yet.
 LATER_FLAGS = {
-    "topk_frac": "the topk wire",
-    "topk_warmup_rounds": "the topk wire",
-    "psgd_rank": "the powersgd wire",
-    "allow_unrobust_topk": "the topk wire",
-    "zone_shards": "zone sharding",
     "fsdp": "fsdp",
     "seq_sharded": "sequence parallelism",
     "sp_impl": "sequence parallelism",
@@ -382,6 +390,10 @@ def main() -> None:
             steps_per_call=args.steps_per_call,
             average_what=args.average_what,
             wire=args.wire,
+            topk_frac=args.topk_frac,
+            topk_warmup_rounds=args.topk_warmup_rounds,
+            powersgd_rank=args.psgd_rank,
+            allow_unrobust_topk=args.allow_unrobust_topk,
             overlap=args.overlap,
             max_staleness=args.max_staleness,
             min_group=args.min_group,
@@ -390,6 +402,7 @@ def main() -> None:
             group_rotation_s=args.group_rotation_s,
             zone=args.zone,
             cross_zone_every_k=args.cross_zone_every_k,
+            zone_shards=args.zone_shards,
             batch_size=args.batch_size,
             accum_steps=args.accum_steps,
             mesh=args.mesh,

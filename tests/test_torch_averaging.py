@@ -9,6 +9,7 @@ instead of hanging.
 
 import asyncio
 import time
+import types
 
 import numpy as np
 import pytest
@@ -253,9 +254,10 @@ def test_mixed_round_with_the_reference():
 
 
 def test_unported_modes_and_wires_raise():
-    """Every mode builds its port averager; what is still unported (the
-    other wires, the shard manager) raises, and the resilience
-    collaborators are accepted."""
+    """Every mode builds its port averager, on every wire of the reference
+    and with a shard manager (all ported now); what the reference refuses
+    (an unknown wire, a gradient compressor under a pairwise mode) raises
+    its ValueError, and the resilience collaborators are accepted."""
     from distributedvolunteercomputing_tpu_torch.swarm import averager as avg_mod
     from distributedvolunteercomputing_tpu_torch.swarm.resilience import ResiliencePolicy
 
@@ -266,10 +268,15 @@ def test_unported_modes_and_wires_raise():
         for mode, cls in (("gossip", avg_mod.GossipAverager), ("butterfly", avg_mod.ButterflyAverager),
                           ("byzantine", avg_mod.ByzantineAverager)):
             assert type(make_averager(mode, t, dht, mem)) is cls
-        with pytest.raises(NotImplementedError, match="q8"):
-            SyncAverager(t, dht, mem, wire="q8")
-        with pytest.raises(NotImplementedError, match="shard_manager"):
-            SyncAverager(t, dht, mem, shard_manager=object())
+        for wire in ("f32", "bf16", "q8", "topk", "powersgd", "sign"):
+            assert SyncAverager(t, dht, mem, wire=wire).wire == wire
+        with pytest.raises(ValueError, match="unknown wire dtype"):
+            SyncAverager(t, dht, mem, wire="q4")
+        with pytest.raises(ValueError, match="not supported for gossip"):
+            make_averager("gossip", t, dht, mem, wire="topk")
+        sm = types.SimpleNamespace(summary=dict, telemetry=None)
+        avg = SyncAverager(t, dht, mem, shard_manager=sm)
+        assert avg.shard_manager is sm and sm.telemetry is avg.telemetry
         policy = ResiliencePolicy()
         assert SyncAverager(t, dht, mem, resilience=policy).resilience is policy
         await asyncio.wait_for(t.close(), 5)

@@ -6,13 +6,12 @@ the dead leader's fast fail, successor election, the chaos transport's
 partition helpers and the aggregator's fence, on port averagers over
 ``ChaosTransport``s with the device codec on CPU tensors.
 
-One case does not run as is: ``test_ef_residual_bitwise_across_recovered_round``
-runs on the topk wire, which the port does not carry yet (ROADMAP Queue 1,
-the wires). Its counterpart on the wire the port carries,
-``test_bf16_recovered_round_refolds_the_retained_pushes``: a leader killed
-mid-stream on the bf16 wire, and the successor's result is the fold of the
-survivors' retained bf16 contributions, which its member fetches as exactly
-that result's bf16 rounding.
+Every case runs as is, ``test_ef_residual_bitwise_across_recovered_round``
+on the topk wire included. ``test_bf16_recovered_round_refolds_the_retained_pushes``
+adds the bf16 wire's counterpart: a leader killed mid-stream, and the
+successor's result is the fold of the survivors' retained bf16
+contributions, which its member fetches as exactly that result's bf16
+rounding.
 """
 
 import numpy as np
@@ -20,11 +19,7 @@ from torch_reference_cases import count_cases, device_codec, port_cases  # noqa:
 
 from distributedvolunteercomputing_tpu_torch import native
 
-REPLACED = {
-    "TestKillAtPhase.test_ef_residual_bitwise_across_recovered_round":
-        "the topk wire is not ported yet",
-}
-REFERENCE = port_cases("test_failover.py", globals(), drop=REPLACED)
+REFERENCE = port_cases("test_failover.py", globals())
 
 
 def test_reference_cases_bind_the_port():
@@ -32,7 +27,7 @@ def test_reference_cases_bind_the_port():
     from distributedvolunteercomputing_tpu_torch.swarm.chaos import ChaosTransport
 
     assert REFERENCE["SyncAverager"] is SyncAverager and REFERENCE["ChaosTransport"] is ChaosTransport
-    assert count_cases(REFERENCE) + len(REPLACED) == 13
+    assert count_cases(REFERENCE) == 13
 
 
 def test_bf16_recovered_round_refolds_the_retained_pushes():

@@ -193,10 +193,48 @@ def test_import_loads_no_jax():
     assert not leaked, f"port imports pulled in {leaked[:10]}"
 
 
+WIRES_SLICE = (
+    "distributedvolunteercomputing_tpu_torch.swarm.powersgd",
+    "distributedvolunteercomputing_tpu_torch.swarm.sharding",
+    "distributedvolunteercomputing_tpu_torch.training.checkpoint",
+    "distributedvolunteercomputing_tpu_torch.ops.mesh_codec",
+)
+WIRES_SCRIPTS = [REPO / "experiments" / "torch_shard_bench.py", REPO / "experiments" / "torch_byz_ratio.py"]
+
+
+def test_scans_cover_the_wires_slice():
+    assert set(WIRES_SLICE) <= {m for m, _ in _port_modules()}
+    assert all(p.exists() for p in WIRES_SCRIPTS)
+
+
+def test_wires_scripts_load_no_jax():
+    # A subprocess: the slice's modules, the shard bench with the reference
+    # bench's text on the port, and the chaos soak's shard campaign.
+    code = (
+        "import importlib, json, runpy, sys\n"
+        f"for m in {list(WIRES_SLICE)!r}: importlib.import_module(m)\n"
+        f"bench = runpy.run_path({str(WIRES_SCRIPTS[0])!r})['load_bench']()\n"
+        f"soak = runpy.run_path({str(FAULTS_SCRIPTS[0])!r})['load_campaigns']()\n"
+        "from distributedvolunteercomputing_tpu_torch.swarm.averager import SyncAverager\n"
+        "from distributedvolunteercomputing_tpu_torch.swarm.sharding import ShardManager\n"
+        "assert issubclass(bench['SyncAverager'], SyncAverager) and callable(bench['run_config'])\n"
+        "assert soak['ShardManager'] is ShardManager and callable(soak['shard_campaign'])\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=120, check=True,
+    )
+    leaked = [m for m in json.loads(out.stdout.strip().splitlines()[-1]) if _forbidden(m)]
+    assert not leaked, f"wires slice pulled in {leaked[:10]}"
+
+
 SCRIPTS = [REPO / "chip_smoke.py"] + ENTRY_SCRIPTS + [REPO / "experiments" / f for f in (
     "torch_step_profile.py", "torch_ring_cards.py", "torch_dp_trace.py", "torch_attention_shapes.py",
     "torch_dq_variants.py", "torch_codec_variants.py", "torch_avg_ab.py", "torch_departed_member.py",
-    "torch_ring_variants.py", "torch_trainer_modes.py")] + FAULTS_SCRIPTS
+    "torch_ring_variants.py", "torch_trainer_modes.py")] + FAULTS_SCRIPTS + WIRES_SCRIPTS
 
 
 @pytest.mark.parametrize("path", SCRIPTS + [p for _, p in _port_modules()], ids=lambda p: p.name)

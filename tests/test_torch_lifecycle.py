@@ -322,7 +322,7 @@ def _non_default(value):
 @pytest.mark.parametrize(
     "field,value",
     [(f, _non_default(d)) for f, (d, _) in vol_mod.LATER_SLICES.items()]
-    + [("wire", "q8"), ("wire", "topk"), ("wire", "powersgd"), ("wire", "sign"), ("mesh", "dp=1,tp=2")],
+    + [("mesh", "dp=1,tp=2")],
 )
 def test_unported_config_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -354,6 +354,53 @@ def test_group_config_errors_match_reference(case):
     assert str(got.value) == str(want.value)
 
 
+# The reference's config checks of the wires and zone sharding: the port
+# raises the same ValueError for each.
+GRADS = dict(average_what="grads")
+WIRE_CONFIG_ERRORS = {
+    "unknown_wire": (dict(averaging="sync", wire="q4"), "unknown wire dtype"),
+    "powersgd_params": (dict(averaging="sync", wire="powersgd"), "requires --average-what grads"),
+    "powersgd_gossip": (dict(averaging="gossip", wire="powersgd", **GRADS), "requires --averaging sync"),
+    "powersgd_rank_0": (dict(averaging="byzantine", wire="powersgd", powersgd_rank=0, **GRADS), "powersgd_rank"),
+    "sign_params": (dict(averaging="byzantine", wire="sign"), "requires --average-what grads"),
+    "sign_butterfly": (dict(averaging="butterfly", wire="sign", **GRADS), "requires --averaging sync"),
+    "topk_params": (dict(averaging="sync", wire="topk"), "requires --average-what grads"),
+    "topk_gossip": (dict(averaging="gossip", wire="topk", **GRADS), "requires --averaging sync"),
+    "topk_negative_warmup": (dict(averaging="sync", wire="topk", topk_warmup_rounds=-1, **GRADS),
+                             "topk_warmup_rounds must be"),
+    "topk_robust_method": (dict(averaging="byzantine", wire="topk", method="median", **GRADS),
+                           "requires --method mean"),
+    "topk_unrobust": (dict(averaging="byzantine", wire="topk", method="mean", **GRADS), "--allow-unrobust-topk"),
+    "negative_zone_shards": (dict(averaging="sync", zone="a", zone_shards=-1), "zone_shards must be"),
+    "zone_shards_without_zone": (dict(averaging="sync", group_size=2, zone_shards=2), "requires --zone"),
+    "zone_shards_without_groups": (dict(averaging="sync", zone="a", zone_shards=2), "requires --group-size"),
+}
+
+
+@pytest.mark.parametrize("case", list(WIRE_CONFIG_ERRORS))
+def test_wire_and_shard_config_errors_match_reference(case):
+    from distributedvolunteercomputing_tpu.swarm.averager import SyncAverager as JaxSyncAverager
+    from distributedvolunteercomputing_tpu.swarm.volunteer import VolunteerConfig as JaxVolunteerConfig
+
+    fields, match = WIRE_CONFIG_ERRORS[case]
+    if case == "unknown_wire":
+        # Both configs take any wire; each averager refuses an unknown one
+        # with this message when the volunteer starts.
+        from distributedvolunteercomputing_tpu_torch.swarm.averager import SyncAverager
+
+        assert VolunteerConfig(**fields).wire == JaxVolunteerConfig(**fields).wire == fields["wire"]
+        with pytest.raises(ValueError, match=match) as got:
+            SyncAverager(None, None, None, wire=fields["wire"])
+        with pytest.raises(ValueError) as want:
+            JaxSyncAverager(None, None, None, wire=fields["wire"])
+    else:
+        with pytest.raises(ValueError, match=match) as got:
+            VolunteerConfig(**fields)
+        with pytest.raises(ValueError, match=match) as want:
+            JaxVolunteerConfig(**fields)
+    assert str(got.value) == str(want.value)
+
+
 def _later_flag_argv():
     """One argv per flag of a later slice, set away from its default."""
     import runpy
@@ -373,7 +420,7 @@ def _later_flag_argv():
                 specs[dest] = [flag, "3"]
     assert set(specs) == set(later)
     return [specs[d] for d in sorted(specs)] + [
-        ["--wire", "powersgd"], ["--wire", "q8"], ["--model", "gpt2_moe"], ["--mesh", "dp=1,tp=2"],
+        ["--model", "gpt2_moe"], ["--mesh", "dp=1,tp=2"],
     ]
 
 
@@ -414,6 +461,24 @@ PORTED_OPTIONS = {
     "cross_zone_every_k": (dict(averaging="sync", group_size=2, zone="a", cross_zone_every_k=2),
                            ["--averaging", "sync", "--group-size", "2", "--zone", "a",
                             "--cross-zone-every-k", "2"]),
+    # The wires and zone sharding: each replaces its refusal.
+    "wire_q8": (dict(averaging="sync", wire="q8"), ["--averaging", "sync", "--wire", "q8"]),
+    "topk_frac": (dict(averaging="sync", wire="topk", topk_frac=0.05, **GRADS),
+                  ["--averaging", "sync", "--average-what", "grads", "--wire", "topk", "--topk-frac", "0.05"]),
+    "topk_warmup_rounds": (dict(averaging="sync", wire="topk", topk_warmup_rounds=3, **GRADS),
+                           ["--averaging", "sync", "--average-what", "grads", "--wire", "topk",
+                            "--topk-warmup-rounds", "3"]),
+    "allow_unrobust_topk": (dict(averaging="byzantine", wire="topk", method="mean", allow_unrobust_topk=True, **GRADS),
+                            ["--averaging", "byzantine", "--average-what", "grads", "--wire", "topk",
+                             "--method", "mean", "--allow-unrobust-topk"]),
+    "powersgd_rank": (dict(averaging="byzantine", wire="powersgd", powersgd_rank=2, method="trimmed_mean",
+                           method_kw={"trim": 1}, **GRADS),
+                      ["--averaging", "byzantine", "--average-what", "grads", "--wire", "powersgd", "--psgd-rank", "2",
+                       "--method", "trimmed_mean", "--method-kw", "trim=1"]),
+    "wire_sign": (dict(averaging="byzantine", wire="sign", **GRADS),
+                  ["--averaging", "byzantine", "--average-what", "grads", "--wire", "sign"]),
+    "zone_shards": (dict(averaging="sync", group_size=2, zone="a", zone_shards=2),
+                    ["--averaging", "sync", "--group-size", "2", "--zone", "a", "--zone-shards", "2"]),
 }
 
 
@@ -436,7 +501,38 @@ def _check_reached(case, vol):
     from distributedvolunteercomputing_tpu_torch.swarm.resilience import ResiliencePolicy
 
     avg, trainer = vol.averager, vol.trainer
-    if case in ("method", "method_kw", "byzantine"):
+    if case in ("wire_q8", "topk_frac", "topk_warmup_rounds", "allow_unrobust_topk", "powersgd_rank", "wire_sign"):
+        wire = {"wire_q8": "q8", "powersgd_rank": "powersgd", "wire_sign": "sign"}.get(case, "topk")
+        assert avg.wire == vol.cfg.wire == wire
+        # The state sync serves over q8 on the q8 wire, else f32.
+        assert vol.state_sync.wire == ("q8" if wire == "q8" else "f32")
+        assert (avg.topk_frac, avg.topk_warmup_rounds) == (
+            0.05 if case == "topk_frac" else 0.01, 3 if case == "topk_warmup_rounds" else 0)
+        assert avg.powersgd_rank == (2 if case == "powersgd_rank" else 4)
+        if case in ("allow_unrobust_topk", "powersgd_rank", "wire_sign"):
+            # topk passes method "mean" explicitly over the Byzantine default.
+            assert type(avg) is avg_mod.ByzantineAverager
+            assert avg.method == {"allow_unrobust_topk": "mean"}.get(case, "trimmed_mean")
+        else:
+            assert type(avg) is avg_mod.SyncAverager
+        assert vol.trainer._wire_averager is avg
+    elif case == "zone_shards":
+        from distributedvolunteercomputing_tpu_torch.swarm.sharding import ShardManager
+        from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer
+
+        sm = vol.shard_manager
+        assert isinstance(sm, ShardManager) and avg.shard_manager is sm
+        assert (sm.k, sm.zone, sm.map.gen) == (2, "a", 0)
+        # The only zone member owns both shards, seeded from the sorted-key
+        # flattening of the averaged subtree.
+        flat, _, _ = flatten_to_buffer(trainer.host_snapshot()[1])
+        assert sm.owned() == [0, 1] and sm.missing() == [] and sm.n_elems == flat.size
+        for s in sm.owned():
+            lo, hi = sm.ranges[s]
+            assert np.array_equal(sm.store.get(s), flat[lo:hi])
+        assert vol._build_report()["sharding"]["k"] == 2
+        assert sm._maint_task is None or sm._maint_task.done()
+    elif case in ("method", "method_kw", "byzantine"):
         assert type(avg) is avg_mod.ByzantineAverager
         assert avg.method == {"method": "median"}.get(case, "trimmed_mean")
         assert avg.method_kw == ({"trim": 1} if case == "method_kw" else {})

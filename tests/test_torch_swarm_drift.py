@@ -41,6 +41,8 @@ COPIED = [
     "swarm/resilience.py",
     "swarm/clocksync.py",
     "swarm/chaos.py",
+    "swarm/powersgd.py",
+    "swarm/sharding.py",
 ]
 
 # module -> [(reason, reference text, port text)]
@@ -80,31 +82,6 @@ ALLOWED = {
         ),
     ],
     "swarm/averager.py": [
-        (
-            "module doc: what this slice of the port carries",
-            '''"""GradientAverager family: the four WAN averaging modes of the reference.
-''',
-            '''"""GradientAverager family: the four WAN averaging modes of the reference.
-
-Ported: the four modes on the f32 and bf16 wires, with the resilience,
-failure-detector and controller collaborators; the other wires and the shard
-manager raise at construction until their slices arrive.
-''',
-        ),
-        (
-            "construction guard: wires other than f32/bf16 and the shard "
-            "manager (zone sharding) raise instead of being accepted and ignored",
-            """        if wire not in ("f32", "bf16", "q8", "topk", "powersgd", "sign"):
-""",
-            """        # Not ported yet: the other wires and zone sharding. Accepting one
-        # and ignoring it would change the round silently.
-        if wire not in ("f32", "bf16"):
-            raise NotImplementedError(f"wire {wire!r} is not ported yet; ported: f32, bf16")
-        if shard_manager is not None:
-            raise NotImplementedError("shard_manager (zone sharding) is not ported yet: pass None")
-        if wire not in ("f32", "bf16", "q8", "topk", "powersgd", "sign"):
-""",
-        ),
         (
             "feed race fix (1/5): a contribute handler that folds an inline push "
             "into the armed stream on a worker thread marks the key as feeding; "

@@ -132,9 +132,9 @@ def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(TypeError):
         Trainer(bundle, batch_size=2, device="cpu", seq_sharded=True)
     with pytest.raises(NotImplementedError, match="not ported"):
-        VolunteerConfig(averaging="sync", group_size=2, zone="a", zone_shards=2)
+        VolunteerConfig(averaging="sync", fsdp=True)
     with pytest.raises(NotImplementedError, match="not ported"):
-        VolunteerConfig(averaging="sync", wire="q8")
+        VolunteerConfig(averaging="sync", mesh="dp=1,tp=2")
 
 
 def test_two_port_volunteers_train_and_average():

@@ -9,6 +9,9 @@ marks, parameters and fixtures. Nothing in the reference's files changes.
 Cases that import a reference experiment script (``from experiments.X
 import ...``) get that script's text under the same rewrite, loaded as the
 module ``ported_experiments.X``; the cases' text names that module instead.
+Cases that import helpers of another reference test file (``from
+tests.test_averaging import ...``) get that file the same way, as
+``ported_tests.test_averaging``.
 Every port averager these cases build without a codec of its own uses the
 process default, which ``device_codec`` sets to the device backend on CPU
 tensors (the plain versions of K4 and K5).
@@ -35,15 +38,25 @@ def ported_text(path: Path) -> str:
 
 def load_experiment(name: str) -> types.ModuleType:
     """``experiments/<name>.py`` on the port, as ``ported_experiments.<name>``."""
-    full = f"ported_experiments.{name}"
+    return _load_ported("experiments", name)
+
+
+def load_test_module(name: str) -> types.ModuleType:
+    """``tests/<name>.py`` on the port, as ``ported_tests.<name>``."""
+    return _load_ported("tests", name)
+
+
+def _load_ported(folder: str, name: str) -> types.ModuleType:
+    root = f"ported_{folder}"
+    full = f"{root}.{name}"
     if full in sys.modules:
         return sys.modules[full]
-    pkg = sys.modules.get("ported_experiments")
+    pkg = sys.modules.get(root)
     if pkg is None:
-        pkg = types.ModuleType("ported_experiments")
+        pkg = types.ModuleType(root)
         pkg.__path__ = []
-        sys.modules["ported_experiments"] = pkg
-    path = REPO / "experiments" / f"{name}.py"
+        sys.modules[root] = pkg
+    path = REPO / folder / f"{name}.py"
     mod = types.ModuleType(full)
     mod.__file__ = str(path)
     sys.modules[full] = mod
@@ -62,18 +75,23 @@ def port_cases(
     drop: Optional[Dict[str, str]] = None,
     experiments: Iterable[str] = (),
     keep: Optional[Iterable[str]] = None,
+    test_modules: Iterable[str] = (),
 ) -> dict:
     """Execute ``tests/<test_file>`` on the port and bind its cases into the
     module namespace ``into``. ``drop``: ``"Class.method"`` or ``"function"``
     -> the reason the case does not run as is (the caller supplies its
     replacement). ``experiments``: the experiment scripts its cases import.
-    ``keep``: only these classes and functions (None = all). Returns the
-    namespace the file ran in."""
+    ``keep``: only these classes and functions (None = all). ``test_modules``:
+    the reference test files whose helpers it imports. Returns the namespace
+    the file ran in."""
     path = REPO / "tests" / test_file
     src = ported_text(path)
     for name in experiments:
         load_experiment(name)
         src = src.replace(f"experiments.{name}", f"ported_experiments.{name}")
+    for name in test_modules:
+        load_test_module(name)
+        src = src.replace(f"tests.{name}", f"ported_tests.{name}")
     ns = {"__name__": f"ported_{path.stem}", "__file__": str(path)}
     exec(compile(src, str(path), "exec"), ns)
     for case in drop or {}:
