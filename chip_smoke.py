@@ -276,13 +276,55 @@ full width and ``DEPTH_CUT``, batch 8:
             with its source and latency), and zone b's shard snapshots
             assemble bit-equal to the held slices.
 
+The volunteer's model-parallel mesh and gpt2_moe (run last; ranks share
+cuda:0 by ``make_mesh(devices=...)``; f32 for the parity checks):
+31. mesh_step  gpt2_small at published widths, 12 layers, batch 8, T 1024:
+            from one init and one batch, 2 AdamW steps on one rank (the
+            reference) and on each layout of ``MESH_LAYOUTS`` (dp=2,tp=2;
+            dp=2 with ZeRO-1; dp=2,tp=2 with FSDP; dp=2,tp=2 in grads mode:
+            grad step then apply step): the loss, every gradient leaf and
+            each leaf's update after the first step within
+            ``PARITY_TOL["dp"]`` (the key bias reported only); every rank's
+            resident param and moment bytes equal to what the specs imply,
+            printed per rank; K1-K3 launches of the second step at the ranks
+            that attend (dp·tp) times a rank's 24 / 12 / 12, at the H/tp head
+            split; samples/s per layout (f32, not bounded). Each layout's
+            state is freed before the next.
+32. moe     gpt2_moe at its published widths (GPT-2 small's, 12 layers, E 8,
+            d_ff 3072 per expert, capacity factor 1.25), batch 8, T 1024,
+            against one rank: top-1 on ep=2,tp=2 and top-2 on dp=2,ep=2,tp=2
+            (``MOE_MESHES``). The first step's loss, lm_loss and aux_loss
+            within ``MOE_TOL["loss"]``, each leaf's update within
+            ``MOE_TOL["update_l2"]``, the share of routing decisions (token,
+            layer, choice: the expert and whether it kept a slot) that
+            differ from one rank's at most ``MOE_TOL["routing"]``, the expert
+            leaves at 1/(ep·tp) of their bytes on every rank, K1-K3 at dp·tp
+            times a rank's count; the dropped-token share per layer and
+            samples/s printed.
+33. mesh_swarm  a coordinator and two ``run_volunteer_torch.py`` processes
+            (gpt2_moe at published widths, ``DEPTH_CUT``): A on ``--mesh
+            ep=2,tp=2``, B on ``--mesh dp=2 --fsdp``, blocking sync rounds
+            on the bf16 wire. Each runs under a recorder
+            (``mesh_swarm_child``: this script, in the child, around the
+            entry script's ``main``), which also puts its mesh's ranks on
+            cuda:0 (``mesh_of``). Each commits
+            ``MESH_SWARM_COMMITS`` rounds with equal schema hashes, every
+            round within ``AVG_TOL`` of the weighted mean of the two
+            contributions (on every ``MESH_SWARM_STRIDE``-th element; the
+            rounds paired by their group's epoch, the leader named by the
+            group both recorded), after
+            each merge every rank's slices equal to the merged payload's,
+            and both exit 0 on SIGTERM with a final ``step_N``.
+
 Each phase also prints ``{"phase_wall": name, "seconds": s, "ok": bool}``
 when it ends. Then one line listing every kernel (``launches_lifecycle``: the counts of
 phase 10, ``launches_protocols`` those of phases 11-13, ``launches_models``
 those of phases 15-18, ``launches_trainer_modes`` those of phases 19-23,
 ``launches_faults`` those of phases 24-26 (failover: the survivors'
 processes' counts from their summaries), ``launches_wires`` those of
-phases 27-30, ``shapes_models`` K1-K3 at the models' shapes),
+phases 27-30, ``launches_mesh`` those of phases 31-32 (33's are the
+children's own), ``shapes_models`` K1-K3 at the models' shapes, the
+tensor-parallel head split's among them),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script
 exits non-zero and prints no ``ok`` line. It needs one card and no network.
@@ -4087,6 +4129,9 @@ LLAMA = dict(model="llama_lora", batch_size=1, lr=0.005, param_dtype="bfloat16")
 # the layout the model hands the kernels: head-split views of a fused qkv,
 # or Llama's contiguous rotated q and k).
 MODEL_ATTENTION = {
+    # gpt2_small's attention on one of two tp ranks (mesh_step): its head
+    # group of 6, the q/k/v column slices of the rank's qkv part.
+    "gpt2_small_tp2": ((4, 6, 1024, 64), True, "qkv"),
     "bert_mlm": ((BERT["batch_size"], 12, 512, 64), False, "qkv"),
     "cifar10_vit": ((VIT_BATCH, 3, 65, 64), False, "qkv"),
     "llama_lora": ((LLAMA["batch_size"], 32, 4096, 128), True, "contiguous"),
@@ -4634,7 +4679,7 @@ def dp_parity_phase(steps_timed: int = 5) -> dict:
     key_bias = float("nan")
     replicas_equal = True
     for name, a, b, p0 in zip(names, tree_leaves(dp.state.params), tree_leaves(one.state.params), init):
-        u_dp, u_one = a.float() - p0, b.float() - p0
+        u_dp, u_one = a.full().float() - p0, b.float() - p0
         if name == "blocks/qkv/b":
             key_bias = (u_dp[:, kb] - u_one[:, kb]).abs().max().item()
             u_dp[:, kb] = u_one[:, kb] = 0.0
@@ -4643,9 +4688,9 @@ def dp_parity_phase(steps_timed: int = 5) -> dict:
             "max_abs_diff": (u_dp - u_one).abs().max().item(),
         }
     del init
-    for r in dp.state.replicas[1:]:
-        for a, b in zip(tree_leaves(r.params), tree_leaves(dp.state.params)):
-            replicas_equal = replicas_equal and bool(torch.equal(a.to(b.device), b))
+    for leaf in dp.state.leaves():
+        for s in leaf.shards[1:]:
+            replicas_equal = replicas_equal and bool(torch.equal(s.to(leaf.shards[0].device), leaf.shards[0]))
     row = {
         "phase": "dp_parity", "model": bundle.name, "dp": 2, "devices": [str(d) for d in devices],
         "cross_card": cross, "batch_size": 8, "dtype": "float32",
@@ -4681,6 +4726,514 @@ def dp_parity_phase(steps_timed: int = 5) -> dict:
     if failures:
         raise AssertionError(f"dp=2 step disagrees with the one-rank step: {failures}")
     return row
+
+
+# ---------------------------------------------------------------------------
+# the volunteer's model-parallel mesh and gpt2_moe (phases 31-33)
+# ---------------------------------------------------------------------------
+
+MESH_DEVICE = "cuda:0"  # every rank of phases 31-33 shares the one card
+MESH_BATCH = 8
+# layout -> (mesh axes, zero1, fsdp, grads mode: grad step then apply step)
+MESH_LAYOUTS = {
+    "dp2tp2": (dict(dp=2, tp=2), False, False, False),
+    "dp2_zero1": (dict(dp=2), True, False, False),
+    "dp2tp2_fsdp": (dict(dp=2, tp=2), False, True, False),
+    "dp2tp2_grads": (dict(dp=2, tp=2), False, False, True),
+}
+# name -> (router_top_k, mesh axes): the reference's test meshes
+MOE_MESHES = {
+    "top1_ep2tp2": (1, dict(ep=2, tp=2)),
+    "top2_dp2ep2tp2": (2, dict(dp=2, ep=2, tp=2)),
+}
+# gpt2_moe on a mesh against one rank, f32: loss, lm_loss and aux_loss
+# relative; each leaf's first update by relative l2 (Adam's first update
+# normalizes each gradient element, PARITY_TOL's reason); the share of
+# routing decisions that differ. Routing is discrete: rounding in the tp
+# partial sums can flip a near-tie among 8192 tokens, and a flip moves the
+# loss by about one token's share.
+MOE_TOL = {"loss": 1e-4, "update_l2": 1e-3, "routing": 1e-3}
+MESH_SWARM_COMMITS = 2  # committed rounds each mesh volunteer must make
+MESH_SWARM_WAIT_S = 240.0  # cap on the wait for them
+MESH_SWARM_STRIDE = 97  # the value checks read every 97th element of the flat payload
+
+
+def mesh_of(axes: dict):
+    from distributedvolunteercomputing_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(**axes, devices=[MESH_DEVICE] * math.prod(axes.values()))
+
+
+def spec_bytes(state) -> dict:
+    """Per rank: the param and moment bytes the placements imply (each
+    leaf's local shape times its element size)."""
+    def size(sh, dtype):
+        return math.prod(sh.local_shape()) * torch.tensor([], dtype=dtype).element_size()
+
+    leaves = state.leaves()
+    n = len(state.layout.devices)
+    params = sum(size(leaf.sharding, leaf.dtype) for leaf in leaves)
+    moments = sum(size(state.opt_shardings[i], leaf.dtype) for name in state.moment_names()
+                  for i, leaf in enumerate(leaves) if state.opt_state[name][i] is not None)
+    return {"params": [params] * n, "moments": [moments] * n}
+
+
+def update_diff(names, got, want, init, d_model: int) -> tuple:
+    """Per leaf: ||u_got - u_want|| / ||u_want|| of the updates from
+    ``init``, and the key bias's max abs difference (reported only: its
+    exact gradient is 0)."""
+    out, key_bias = {}, float("nan")
+    kb = slice(d_model, 2 * d_model)
+    for name, a, b, p0 in zip(names, got, want, init):
+        u_a, u_b = a.float() - p0.float(), b.float() - p0.float()
+        if name == "blocks/qkv/b":
+            key_bias = (u_a[:, kb] - u_b[:, kb]).abs().max().item()
+            u_a[:, kb] = u_b[:, kb] = 0.0
+        out[name] = ((u_a - u_b).norm() / u_b.norm().clamp_min(1e-30)).item()
+    return out, key_bias
+
+
+def mesh_step_phase(layouts=None, model: str = "gpt2_small", overrides=None) -> dict:
+    """Phase 31 (see the module doc): each layout of ``MESH_LAYOUTS`` against
+    one rank, f32, 2 AdamW steps from one init and one batch."""
+    from distributedvolunteercomputing_tpu_torch.models import get_model
+    from distributedvolunteercomputing_tpu_torch.ops import flash_attention as fa
+    from distributedvolunteercomputing_tpu_torch.parallel import train_step as pts
+    from distributedvolunteercomputing_tpu_torch.training.optim import make_optimizer
+    from distributedvolunteercomputing_tpu_torch.training.steps import TrainState, grad_half, make_train_step
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_flatten, tree_leaves, tree_map
+    from distributedvolunteercomputing_tpu_torch.utils.torchenv import compute_dtype_as
+
+    layouts = MESH_LAYOUTS if layouts is None else layouts
+    bundle = get_model(model, **(overrides or {}))
+    cfg = bundle.config
+    dev = torch.device(MESH_DEVICE)
+    batch = bundle.make_batch(torch.Generator().manual_seed(7), MESH_BATCH)
+    per_step = dict(zip(KERNELS, flash_per_step(model, overrides)))
+    tol = PARITY_TOL["dp"]
+    failures, rows, launches = [], {}, collections.Counter()
+    release_card_memory()
+    with compute_dtype_as(torch.float32):
+        params0 = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        names = leaf_names(params0)
+        init = tree_leaves(params0)
+        tx1 = make_optimizer("adamw", lr=DP_LR)
+        one = TrainState.create(tree_map(torch.clone, params0), tx1, torch.Generator(device=dev))
+        b1 = {k: v.to(dev) for k, v in batch.items()}
+        g_ref, m_ref = grad_half(bundle.loss_fn, one, b1)
+        step1 = make_train_step(bundle.loss_fn, tx1)
+        cuda_sync()
+        t0 = time.perf_counter()
+        one, s_ref = step1(one, b1)
+        cuda_sync()
+        one_s = time.perf_counter() - t0
+        after_ref = [p.clone() for p in tree_leaves(one.params)]
+        del one
+        for name, (axes, zero1, fsdp, grads_mode) in layouts.items():
+            mesh = mesh_of(axes)
+            tx = make_optimizer("adamw", lr=DP_LR)
+            state, _ = pts.shard_train_state(TrainState.create(tree_map(torch.clone, params0), tx,
+                                                               torch.Generator(device=dev)), mesh, zero1=zero1, fsdp=fsdp)
+            shares = pts.put_batch(batch, mesh)
+            if grads_mode:
+                grad_fn = pts.make_sharded_grad_step(bundle.loss_fn, mesh)
+                apply_fn = pts.make_sharded_apply_step(tx, mesh)
+
+                def step(st):
+                    g, m, rng = grad_fn(st, shares)
+                    return apply_fn(st, g, rng), m, tree_flatten(g)[0]
+            else:
+                fused = pts.make_sharded_train_step(bundle.loss_fn, tx, mesh, zero1=zero1, fsdp=fsdp)
+
+                def step(st):
+                    g, _ = pts.dp_grad_half(bundle.loss_fn, st, shares)
+                    st, m = fused(st, shares)
+                    return st, m, g
+
+            state, m1, grads = step(state)
+            grad_rows = leaf_diff(grads, g_ref, names)
+            del grads
+            updates, key_bias = update_diff(names, [leaf.full() for leaf in state.leaves()], after_ref, init,
+                                            cfg.d_model)
+            got_bytes, want_bytes = state.bytes_per_rank(), spec_bytes(state)
+            # Step 2: the launches and the time of one step of the layout.
+            cuda_sync()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            if grads_mode:
+                g, m2, rng = grad_fn(state, shares)
+                apply_fn(state, g, rng)
+                del g
+            else:
+                state, m2 = fused(state, shares)
+            cuda_sync()
+            step_s = time.perf_counter() - t0
+            got_launches = dict(fa.LAUNCHES)
+            launches.update(got_launches)
+            attend = axes.get("dp", 1) * axes.get("tp", 1)
+            want_launches = {k: attend * v for k, v in per_step.items()}
+            loss_rel = abs(float(m1["loss"]) - float(m_ref["loss"])) / abs(float(m_ref["loss"]))
+            row = {
+                "phase": "mesh_step", "layout": name, "mesh": axes, "zero1": zero1, "fsdp": fsdp,
+                "grads_mode": grads_mode, "model": bundle.name, "n_layers": cfg.n_layers, "batch_size": MESH_BATCH,
+                "dtype": "float32", "ranks": [str(d) for d in mesh.flat()], "loss_one": float(m_ref["loss"]),
+                "loss_mesh": float(m1["loss"]), "loss_rel_diff": loss_rel, "grad_norm_one": float(s_ref["grad_norm"]),
+                "grad_norm_mesh": float(m1["grad_norm"]), "grad_leaf": grad_rows, "update_l2": updates,
+                "key_bias_max_abs_diff": key_bias, "bytes_per_rank": got_bytes, "bytes_per_rank_specs": want_bytes,
+                "bytes_note": "tensors each rank holds; the ranks share one card, whose memory does not shrink",
+                "launches": got_launches, "launches_expected": want_launches, "step_s": step_s,
+                "samples_per_sec": MESH_BATCH / step_s, "one_rank_samples_per_sec": MESH_BATCH / one_s,
+                "loss_step2": float(m2["loss"]), "tol": tol,
+            }
+            emit(row)
+            rows[name] = row
+            bad = [f"grad {n} {k}" for n, e in grad_rows.items() for k in ("l2", "max") if not e[k] <= tol[f"leaf_{k}"]]
+            bad += [f"update {n}" for n, u in updates.items() if not u <= tol["update_l2"]]
+            if not loss_rel <= tol["loss"]:
+                bad.append("loss")
+            if got_bytes != want_bytes:
+                bad.append(f"bytes per rank {got_bytes} != the specs' {want_bytes}")
+            if {k: got_launches.get(k, 0) for k in want_launches} != want_launches:
+                bad.append(f"K1-K3 launches {got_launches} != {want_launches}")
+            if not math.isfinite(float(m2["loss"])):
+                bad.append("non-finite second loss")
+            failures += [f"{name}: {b}" for b in bad]
+            del state, shares, m1, m2
+            release_card_memory()
+    del params0, after_ref, g_ref, init
+    release_card_memory()
+    if failures:
+        raise AssertionError(f"mesh_step: {failures}")
+    return dict(launches)
+
+
+def routing_rows(log, groups: int) -> list:
+    """Per layer: (top_idx, kept) of the whole batch from a routing log that
+    holds ``groups`` entries per layer (one per dp group, in batch order)."""
+    out = []
+    for i in range(0, len(log), groups):
+        part = log[i:i + groups]
+        out.append((torch.cat([r["top_idx"] for r in part]), torch.cat([r["kept"] for r in part])))
+    return out
+
+
+def moe_phase(meshes=None, overrides=None) -> dict:
+    """Phase 32 (see the module doc): gpt2_moe on ``MOE_MESHES`` against
+    one rank, f32, one AdamW step from one init and one batch."""
+    from distributedvolunteercomputing_tpu_torch.models import get_model, moe
+    from distributedvolunteercomputing_tpu_torch.ops import flash_attention as fa
+    from distributedvolunteercomputing_tpu_torch.parallel import train_step as pts
+    from distributedvolunteercomputing_tpu_torch.training.optim import make_optimizer
+    from distributedvolunteercomputing_tpu_torch.training.steps import TrainState, make_train_step
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_leaves, tree_map
+    from distributedvolunteercomputing_tpu_torch.utils.torchenv import compute_dtype_as
+
+    meshes = MOE_MESHES if meshes is None else meshes
+    dev = torch.device(MESH_DEVICE)
+    failures, rows, launches = [], {}, collections.Counter()
+    for name, (top_k, axes) in meshes.items():
+        release_card_memory()
+        over = dict(overrides or {}, router_top_k=top_k)
+        bundle = get_model("gpt2_moe", **over)
+        cfg = bundle.config
+        per_step = dict(zip(KERNELS, flash_per_step("gpt2_moe", over)))
+        batch = bundle.make_batch(torch.Generator().manual_seed(9), MESH_BATCH)
+        with compute_dtype_as(torch.float32):
+            params0 = bundle.init(torch.Generator(device=dev).manual_seed(0))
+            names = leaf_names(params0)
+            b1 = {k: v.to(dev) for k, v in batch.items()}
+            with moe.routing_log() as log_one, torch.no_grad():
+                bundle.loss_fn(params0, b1, torch.Generator(device=dev))
+            tx1 = make_optimizer("adamw", lr=DP_LR)
+            one = TrainState.create(tree_map(torch.clone, params0), tx1, torch.Generator(device=dev))
+            cuda_sync()
+            t0 = time.perf_counter()
+            one, m_one = make_train_step(bundle.loss_fn, tx1)(one, b1)
+            cuda_sync()
+            one_s = time.perf_counter() - t0
+            after_one = [p.clone() for p in tree_leaves(one.params)]
+            del one
+            mesh = mesh_of(axes)
+            tx = make_optimizer("adamw", lr=DP_LR)
+            state, _ = pts.shard_train_state(TrainState.create(tree_map(torch.clone, params0), tx,
+                                                               torch.Generator(device=dev)), mesh)
+            shares = pts.put_batch(batch, mesh)
+            with moe.routing_log() as log_mesh:
+                pts.make_sharded_eval_step(bundle.loss_fn, mesh)(state, batch)
+            step = pts.make_sharded_train_step(bundle.loss_fn, tx, mesh)
+            cuda_sync()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, m = step(state, shares)
+            cuda_sync()
+            step_s = time.perf_counter() - t0
+            got_launches = dict(fa.LAUNCHES)
+            launches.update(got_launches)
+        groups = axes.get("dp", 1)
+        ref_rows, mesh_rows = routing_rows(log_one, 1), routing_rows(log_mesh, groups)
+        decisions = differ = 0
+        dropped = []
+        for (ti, ki), (tm, km) in zip(ref_rows, mesh_rows):
+            decisions += ti.numel()
+            differ += int(((ti != tm) | (ki != km)).sum())
+            dropped.append([1.0 - float(ki[:, c].float().mean()) for c in range(top_k)])
+        updates, key_bias = update_diff(names, [leaf.full() for leaf in state.leaves()], after_one,
+                                        tree_leaves(params0), cfg.d_model)
+        ep_tp = axes.get("ep", 1) * axes.get("tp", 1)
+        expert_bytes = {}
+        for n, leaf in zip(names, state.leaves()):
+            if n.endswith(("moe_in", "moe_out")):
+                expert_bytes[n] = {"per_rank": leaf.nbytes_per_rank(),
+                                   "whole": math.prod(leaf.shape) * torch.tensor([], dtype=leaf.dtype).element_size()}
+        losses = {k: (float(m_one[k]), float(m[k]), abs(float(m[k]) - float(m_one[k])) / abs(float(m_one[k])))
+                  for k in ("loss", "lm_loss", "aux_loss")}
+        want_launches = {k: axes.get("dp", 1) * axes.get("tp", 1) * v for k, v in per_step.items()}
+        row = {
+            "phase": "moe", "mesh_name": name, "mesh": axes, "router_top_k": top_k, "n_layers": cfg.n_layers,
+            "n_experts": cfg.n_experts, "d_ff": cfg.d_ff, "capacity_factor": cfg.capacity_factor,
+            "batch_size": MESH_BATCH, "dtype": "float32", "losses_one_mesh_rel": losses, "update_l2": updates,
+            "key_bias_max_abs_diff": key_bias, "routing_decisions": decisions, "routing_differ": differ,
+            "routing_differ_share": differ / max(decisions, 1), "dropped_share_per_layer": dropped,
+            "expert_bytes": expert_bytes, "launches": got_launches, "launches_expected": want_launches,
+            "step_s": step_s, "samples_per_sec": MESH_BATCH / step_s, "one_rank_samples_per_sec": MESH_BATCH / one_s,
+            "tol": MOE_TOL,
+        }
+        emit(row)
+        rows[name] = row
+        bad = [f"{k} {v}" for k, v in losses.items() if not v[2] <= MOE_TOL["loss"]]
+        bad += [f"update {n} {u}" for n, u in updates.items() if not u <= MOE_TOL["update_l2"]]
+        if not row["routing_differ_share"] <= MOE_TOL["routing"] or len(mesh_rows) != cfg.n_layers:
+            bad.append(f"routing differs on {differ} of {decisions} decisions")
+        for n, e in expert_bytes.items():
+            if e["per_rank"] != [e["whole"] // ep_tp] * len(e["per_rank"]):
+                bad.append(f"{n} per rank {e['per_rank']} != 1/{ep_tp} of {e['whole']}")
+        if {k: got_launches.get(k, 0) for k in want_launches} != want_launches:
+            bad.append(f"K1-K3 launches {got_launches} != {want_launches}")
+        failures += [f"{name}: {b}" for b in bad]
+        del state, shares, params0, after_one, log_one, log_mesh, ref_rows, mesh_rows
+    release_card_memory()
+    if failures:
+        raise AssertionError(f"moe: {failures}")
+    return dict(launches)
+
+
+def mesh_swarm_child(record_dir: str, argv: list) -> int:
+    """A mesh volunteer of phase 33: ``run_volunteer_torch.py``'s ``main``
+    with ``argv``, under a recorder. Per round it keeps the group it formed
+    (epoch, leader, size), the contribution's weight and the schema hash
+    and, when it committed, every ``MESH_SWARM_STRIDE``-th element of the
+    flat contribution and of the result; after each merge, whether
+    every rank's slices equal the merged payload's (compared on the card).
+    The ``--mesh`` spec's ranks, which would go on the visible cards, all
+    go on ``MESH_DEVICE`` (``mesh_of``): the driver's machine has one card."""
+    import runpy
+
+    import numpy as np
+
+    sys.path.insert(0, str(HERE))
+    from distributedvolunteercomputing_tpu_torch.swarm import averager as amod
+    from distributedvolunteercomputing_tpu_torch.swarm import volunteer as vmod
+    from distributedvolunteercomputing_tpu_torch.training import trainer as tmod
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import flatten_to_buffer, tree_flatten
+
+    out = Path(record_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    run_round, swap = tmod.Trainer._run_average_round, tmod.Trainer._swap_params
+    form_group = amod.SyncAverager._form_group
+    seen = {"rounds": 0, "group": None}
+
+    async def recorded_form_group(self, round_key):
+        group = await form_group(self, round_key)
+        seen["group"] = None if group is None else {
+            "epoch": group.epoch, "leader": group.members[0][0], "size": len(group.members), "me": self.peer_id}
+        return group
+
+    def log(entry):
+        with open(out / "records.jsonl", "a") as f:
+            f.write(json.dumps(entry) + "\n")
+
+    def recorded_round(self, step_no):
+        seen["group"] = None
+        payload, merged = run_round(self, step_no)
+        i = seen["rounds"]
+        seen["rounds"] += 1
+        entry = {"kind": "round", "step": step_no, "ok": merged is not None, "t": time.time(), "round": i,
+                 "weight": self.batch_size * self.steps_since_merge, "group": seen["group"],
+                 "schema": getattr(getattr(self, "_wire_averager", None), "_schema", None)}
+        if merged is not None:
+            np.save(out / f"payload{i}.npy", flatten_to_buffer(payload)[0][::MESH_SWARM_STRIDE])
+            np.save(out / f"result{i}.npy", flatten_to_buffer(merged)[0][::MESH_SWARM_STRIDE])
+        log(entry)
+        return payload, merged
+
+    def recorded_swap(self, payload, step_no):
+        swap(self, payload, step_no)
+        equal, leaves = True, 0
+        with torch.no_grad():
+            for leaf, v in zip(tree_flatten(self.bundle.avg_select(self.state.params))[0], tree_flatten(payload)[0]):
+                full = torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(leaf.device)
+                for r, s in enumerate(leaf.shards):
+                    equal &= bool(torch.equal(s, full[leaf.sharding.index(r)].to(s.device, s.dtype)))
+                leaves += 1
+        log({"kind": "merge", "step": step_no, "slices_equal": equal, "leaves": leaves,
+             "ranks": len(self.mesh.flat()) if self.mesh is not None else 1})
+
+    tmod.Trainer._run_average_round, tmod.Trainer._swap_params = recorded_round, recorded_swap
+    amod.SyncAverager._form_group = recorded_form_group
+    make_mesh = vmod.make_mesh  # a spec's ranks on the visible cards go on MESH_DEVICE
+    vmod.make_mesh = lambda devices=None, **axes: make_mesh(devices=devices, **axes) if devices else mesh_of(axes)
+    sys.argv = ["run_volunteer_torch.py", *argv]
+    main_fn = runpy.run_path(str(HERE / "run_volunteer_torch.py"))["main"]
+    main_fn()
+    return 0
+
+
+def mesh_swarm_phase(overrides=None, extra_argv=()) -> dict:
+    """Phase 33 (see the module doc); ``overrides`` (``DEPTH_CUT`` by
+    default) and ``extra_argv`` go to both volunteers."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from distributedvolunteercomputing_tpu_torch import native
+    from distributedvolunteercomputing_tpu_torch.training.checkpoint import latest_step
+
+    if not native.ensure_built():
+        raise RuntimeError("the host codec's C++ core did not build")
+    (HERE / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="mesh_swarm_", dir=HERE / "build"))
+    over = DEPTH_CUT if overrides is None else overrides
+    release_card_memory()
+    vols = {"A": ["--mesh", "ep=2,tp=2"], "B": ["--mesh", "dp=2", "--fsdp"]}
+    procs = {}
+
+    async def spawn(name, argv):
+        procs[name] = await asyncio.create_subprocess_exec(
+            sys.executable, *map(str, argv), cwd=str(HERE),
+            stdout=asyncio.subprocess.PIPE if name == "coord" else open(tmp / f"{name}.out", "w"),
+            stderr=open(tmp / f"{name}.log", "w"))
+        return procs[name]
+
+    def records(name):
+        return read_jsonl(tmp / name / "records.jsonl")
+
+    def tail(name):
+        p = tmp / f"{name}.log"
+        return p.read_text()[-3000:] if p.exists() else ""
+
+    async def main():
+        try:
+            return await swarm()
+        finally:  # every process this phase started ends here, inside the loop
+            for p in procs.values():
+                if p.returncode is None:
+                    p.kill()
+                    await p.wait()
+
+    async def swarm():
+        t_coord = time.perf_counter()
+        coord = await spawn("coord", [HERE / "coordinator_torch.py", "--port", "0"])
+        line = await asyncio.wait_for(coord.stdout.readline(), 120)
+        if not line.startswith(b"COORDINATOR_READY"):
+            raise AssertionError(f"coordinator: {line!r} {tail('coord')}")
+        addr = line.split()[1].decode()
+        timing["coord_s"] = time.perf_counter() - t_coord
+        timing["spawn_t"] = time.time()
+        t0 = time.perf_counter()
+        for i, (name, mesh_args) in enumerate(vols.items()):
+            await spawn(name, [HERE / "chip_smoke.py", "--mesh-swarm-child", tmp / name, "--",
+                               "--model", "gpt2_moe", "--batch-size", MESH_BATCH,
+                               *[a for k, v in over.items() for a in ("--model-override", f"{k}={v}")],
+                               "--averaging", "sync", "--wire", "bf16", "--average-every", AVG_EVERY, "--no-overlap",
+                               "--coordinator", addr, "--checkpoint-dir", tmp / f"ckpt_{name}",
+                               "--checkpoint-every", 100000, "--peer-id", f"mesh{name}", "--seed", i + 1,
+                               "--steps", 100000, *mesh_args, *extra_argv])
+        deadline = time.monotonic() + MESH_SWARM_WAIT_S
+        while not all(sum(r.get("ok", False) for r in records(n) if r["kind"] == "round") >= MESH_SWARM_COMMITS
+                      for n in vols):
+            for n in vols:
+                if procs[n].returncode is not None:
+                    raise AssertionError(f"mesh volunteer {n} exited ({procs[n].returncode}): {tail(n)}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"mesh_swarm: not {MESH_SWARM_COMMITS} commits each within "
+                                     f"{MESH_SWARM_WAIT_S} s: { {n: records(n) for n in vols} }")
+            await asyncio.sleep(0.5)
+        train_s = time.perf_counter() - t0
+        rcs = {}
+        t_stop = time.perf_counter()
+        for n in vols:
+            procs[n].send_signal(signal.SIGTERM)
+        for n in vols:
+            try:
+                rcs[n] = await asyncio.wait_for(procs[n].wait(), 240)
+            except asyncio.TimeoutError:
+                procs[n].kill()
+                await procs[n].wait()
+                raise AssertionError(f"mesh volunteer {n} did not exit within 240 s of SIGTERM")
+        timing["stop_s"] = time.perf_counter() - t_stop
+        return train_s, rcs
+
+    failures, timing = [], {}
+    try:
+        train_s, rcs = asyncio.run(main())
+        # Seconds from the spawn to each volunteer's committed rounds: start-up
+        # (the card, the model, the mesh, the swarm) is the first one's most.
+        for n in vols:
+            timing[f"{n}_round_s"] = [r["t"] - timing["spawn_t"] for r in records(n) if r["kind"] == "round"]
+        out = {"phase": "mesh_swarm", "model": "gpt2_moe", "overrides": over, "train_s": train_s, "rc": rcs,
+               "seconds": {k: v for k, v in timing.items() if k != "spawn_t"},
+               "meshes": vols}
+        recs = {n: records(n) for n in vols}
+        for n in vols:
+            done = [ln for ln in (tmp / f"{n}.out").read_text().splitlines() if ln.startswith("VOLUNTEER_DONE ")]
+            steps = json.loads(done[-1].split(" ", 1)[1])["steps"] if done else None
+            final = latest_step(str(tmp / f"ckpt_{n}"))
+            merges = [r for r in recs[n] if r["kind"] == "merge"]
+            rounds = [r for r in recs[n] if r["kind"] == "round"]
+            out[n] = {"rounds": rounds, "merges": merges, "steps": steps, "final_step_N": final}
+            if rcs[n] != 0 or final is None or final != steps:
+                failures.append(f"{n} on SIGTERM: rc {rcs[n]}, final step_N {final}, its steps {steps}")
+            if sum(r["ok"] for r in rounds) < MESH_SWARM_COMMITS:
+                failures.append(f"{n}: {sum(r['ok'] for r in rounds)} committed rounds")
+            if not merges or not all(m["slices_equal"] for m in merges):
+                failures.append(f"{n}: a rank's slices differ from the merged payload's: {merges}")
+        schemas = {r["schema"] for n in vols for r in recs[n] if r["kind"] == "round" and r["ok"]}
+        out["schemas"] = sorted(s for s in schemas if s)
+        if len(schemas) != 1 or None in schemas:
+            failures.append(f"schema hashes {schemas}")
+        # The same round on both sides: the one epoch its group carried. The
+        # group's leader folded the contributions; a round one of them
+        # committed alone has no partner.
+        def committed(n):
+            return {r["group"]["epoch"]: r for r in recs[n] if r["kind"] == "round" and r["ok"] and r["group"]}
+
+        by_epoch = [committed(n) for n in vols]
+        pairs = [[], []]
+        for epoch in sorted(set(by_epoch[0]) & set(by_epoch[1]), key=lambda e: by_epoch[0][e]["round"]):
+            for side, n in enumerate(vols):
+                r = by_epoch[side][epoch]
+                pairs[side].append({"round": len(pairs[side]), "step": r["step"], "weight": r["weight"],
+                                    "led_streamed": r["group"]["leader"] == r["group"]["me"],
+                                    "payload": np.load(tmp / n / f"payload{r['round']}.npy"),
+                                    "result": np.load(tmp / n / f"result{r['round']}.npy")})
+        out["epochs_paired"] = len(pairs[0])
+        # The leader's result must be named from the record: the member's is
+        # the leader's rounded to bf16 once more, and after a skipped round
+        # its max abs error can be the smaller one
+        # (experiments/torch_mesh_swarm_leader.py).
+        for a, b in zip(*pairs):
+            if a["led_streamed"] == b["led_streamed"]:
+                failures.append(f"round at step {a['step']}: not exactly one leader recorded")
+        out["values"] = check_averaged_values(pairs, failures, all_rounds=True)
+        out["value_stride"] = MESH_SWARM_STRIDE
+        emit(out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"mesh_swarm: {failures}")
+    return out
 
 
 def flash_launches() -> dict:
@@ -4851,6 +5404,8 @@ def main() -> int:
         import shutil
 
         shutil.rmtree(data_dir, ignore_errors=True)
+    mesh = {"mesh_step": timed("mesh_step", mesh_step_phase), "moe": timed("moe", moe_phase)}
+    timed("mesh_swarm", mesh_swarm_phase)
 
     def protocol_launches(kname):
         return {phase: counts[kname] for phase, counts in protocols.items()}
@@ -4866,6 +5421,9 @@ def main() -> int:
 
     def wire_launches(kname):
         return {phase: counts.get(kname, 0) for phase, counts in wires.items()}
+
+    def mesh_launches(kname):
+        return {phase: counts.get(kname, 0) for phase, counts in mesh.items()}
 
     def model_shapes(kname):
         """K1-K3 at each model's main-path shape: error, device ms, plain,
@@ -4888,7 +5446,8 @@ def main() -> int:
             "launches": launches[kname], "launches_lifecycle": life_launches[kname],
             "launches_protocols": protocol_launches(kname), "launches_models": model_launches(kname),
             "launches_trainer_modes": mode_launches(kname), "launches_faults": fault_launches(kname),
-            "launches_wires": wire_launches(kname), "shapes_models": model_shapes(kname), "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
+            "launches_wires": wire_launches(kname), "launches_mesh": mesh_launches(kname),
+            "shapes_models": model_shapes(kname), "max_abs_err": r["max_abs_err"], "ms": t[kname]["ms"],
             "ms_method": DEVICE_MS_METHOD, "ms_qkv_view": times["qkv"][kname]["ms"],
             "plain_ms": t[kname]["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": t[lib]["ms"], "library_ms_qkv_view": times["qkv"][lib]["ms"],
@@ -4902,6 +5461,7 @@ def main() -> int:
         "launches_lifecycle": life_launches["bf16_encode"], "launches_protocols": protocol_launches("bf16_encode"),
         "launches_models": model_launches("bf16_encode"), "launches_trainer_modes": mode_launches("bf16_encode"),
         "launches_faults": fault_launches("bf16_encode"), "launches_wires": wire_launches("bf16_encode"),
+        "launches_mesh": mesh_launches("bf16_encode"),
         "max_abs_err": codec["encode_max_abs_err"], "n": k4["n"], "ms": k4["ms"], "ms_method": k4["ms_method"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"], "library_call": k4["library_call"],
@@ -4911,7 +5471,7 @@ def main() -> int:
         "replaces": CODEC_KERNELS["bf16_fold_chunks"][0], "launches": launches["bf16_fold_chunks"],
         "launches_lifecycle": life_launches["bf16_fold_chunks"], "launches_models": model_launches("bf16_fold_chunks"),
         "launches_trainer_modes": mode_launches("bf16_fold_chunks"), "launches_faults": fault_launches("bf16_fold_chunks"),
-        "launches_wires": wire_launches("bf16_fold_chunks"),
+        "launches_wires": wire_launches("bf16_fold_chunks"), "launches_mesh": mesh_launches("bf16_fold_chunks"),
         "max_abs_err": max(k5["max_abs_err"], codec["fold_max_abs_err"]),
         "per": f"staged flush of {k5['chunks']} chunks of 1 MiB ({k5['distinct_tiles']} tiles)",
         "ms": k5["device_ms"], "ms_method": "profiler device time of bf16_fold_kernel per flush",
@@ -4929,7 +5489,7 @@ def main() -> int:
             "name": kname, "id": kid, "route": "cuda", "source": RING_SOURCE, "replaces": replaces,
             "launches": launches[kname], "launches_models": model_launches(kname),
             "launches_trainer_modes": mode_launches(kname), "launches_faults": fault_launches(kname),
-            "launches_wires": wire_launches(kname),
+            "launches_wires": wire_launches(kname), "launches_mesh": mesh_launches(kname),
             "max_abs_err": max(c["max_abs_err"] for rows in checks for c in rows),
             "nd": 2, "cross_card": flag["cross_card"],
             "design": "stepwise, across cards" if flag["cross_card"] else "one launch, every rank on one card",
@@ -4947,4 +5507,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-swarm-child"]:  # a volunteer of phase 33
+        sys.exit(mesh_swarm_child(sys.argv[2], sys.argv[4:]))
     sys.exit(main())

@@ -10,12 +10,11 @@ non-causal and unmasked, so on the card it runs on the flash kernels.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from distributedvolunteercomputing_tpu_torch.models import common
-from distributedvolunteercomputing_tpu_torch.ops.attention import multi_head_attention
 
 MASK_ID = 103  # [MASK] in the BERT-base vocab
 
@@ -54,10 +53,11 @@ def init(gen: torch.Generator, cfg: BertConfig, dtype: Optional[torch.dtype] = N
 
 
 def _block(p: common.Params, x: torch.Tensor, cfg: BertConfig) -> torch.Tensor:
-    q, k, v = common.dense(p["qkv"], x).split(cfg.d_model, dim=-1)
-    attn = multi_head_attention(q, k, v, cfg.n_heads)
-    x = common.layernorm(p["ln1"], x + common.dense(p["attn_out"], attn))
-    h = common.dense(p["mlp_out"], common.gelu(common.dense(p["mlp_in"], x)))
+    # Column-parallel qkv / mlp_in and row-parallel attn_out / mlp_out under
+    # a mesh (models/common.py); one device otherwise.
+    attn = common.head_attention(common.col_dense(p["qkv"], x), cfg.d_model, cfg.n_heads)
+    x = common.layernorm(p["ln1"], x + common.row_dense(p["attn_out"], attn))
+    h = common.row_dense(p["mlp_out"], common.tp_map(common.gelu, common.col_dense(p["mlp_in"], x)))
     return common.layernorm(p["ln2"], x + h)
 
 
@@ -77,8 +77,19 @@ def forward(params: common.Params, tokens: torch.Tensor, cfg: BertConfig) -> tor
 
 
 def loss_fn(
-    params: common.Params, batch: Dict[str, torch.Tensor], rng: torch.Generator, cfg: BertConfig
+    params: Any, batch: Any, rng: torch.Generator, cfg: BertConfig
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    h = hidden(params, batch["tokens"], cfg)
-    loss = common.lm_xent_chunked(h, params["wte"], batch["targets"], mask=batch["mask"], head_layout="vd")
+    """The masked mean over the whole batch. ``params`` and ``batch`` may be
+    lists, one entry per dp group (the sharded step's call,
+    ``common.CoupledLoss``): the groups' masked sums and counts are added
+    before the one division, as over the unsplit batch."""
+    views = params if isinstance(params, list) else [params]
+    batches = batch if isinstance(batch, list) else [batch]
+    dev = batches[0]["tokens"].device
+    total = count = 0.0
+    for p, b in zip(views, batches):
+        h = hidden(p, b["tokens"], cfg)
+        s, n = common.lm_xent_chunked(h, p["wte"], b["targets"], mask=b["mask"], head_layout="vd", sums=True)
+        total, count = total + s.to(dev), count + n.to(dev)
+    loss = total / torch.clamp(count, min=1.0)
     return loss, {"loss": loss}

@@ -9,11 +9,22 @@ axis, params stored f32. Compute runs in bf16 on the card and f32 on the CPU
 Every ``init`` takes ``dtype``, the params' storage dtype (None: f32), and
 casts each leaf as it is made, one stacked layer at a time: a bf16 model
 never exists whole in f32 (Llama-2-7B would be 27 GB of it).
+
+Under a mesh (``parallel/train_step.py``) the sharded step hands each dp
+group a view of the params in which a tensor-parallel leaf is a ``Slices``
+(one part per rank of the group, on that rank's device) and a stacked leaf
+is a ``Stack`` that gathers one layer at a time. The view is the context the
+building blocks below consult: on plain tensors they are the one-device
+ops, on ``Slices`` the Megatron split (``col_dense`` per rank's output
+columns, ``row_dense`` per rank's input rows with the partial sums added in
+rank order on the group's leader, ``head_attention`` per rank's head
+group). Cross-rank moves are ``.to(device)`` inside one autograd graph, so
+ranks may share a card.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +58,167 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, scale: Optional[floa
 def dense(p: Params, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     dtype = dtype or compute_dtype(x.device)
     return torch.matmul(x.to(dtype), p["w"].to(dtype)) + p["b"].to(dtype)
+
+
+# -- tensor parallelism: the leaves and activations of one dp group ----------
+
+
+class Slices:
+    """A sharded leaf as one dp group's ranks hold it: ``parts[j]`` on
+    ``devices[j]`` for the group rank ``ranks[j]`` = (ep, tp) coordinates, in
+    rank order. ``dims`` names the part's dim split over each axis (None: not
+    split), ``sizes`` the axis sizes; ``leader`` is the group's first rank,
+    where replicated work and row-parallel sums land."""
+
+    def __init__(self, parts, devices, ranks, dims, sizes, leader):
+        self.parts, self.devices, self.ranks = list(parts), list(devices), list(ranks)
+        self.dims, self.sizes, self.leader = dims, sizes, leader
+
+    def detach(self) -> "Slices":
+        return Slices([p.detach() for p in self.parts], self.devices, self.ranks, self.dims, self.sizes, self.leader)
+
+    def full(self) -> torch.Tensor:
+        """The group's whole leaf on the leader (differentiable)."""
+        grid: Dict[int, list] = {}
+        for (e, _), p in zip(self.ranks, self.parts):
+            grid.setdefault(e, []).append(p.to(self.leader))
+        rows = [torch.cat(ps, self.dims["tp"]) if self.dims["tp"] is not None else ps[0] for ps in grid.values()]
+        return torch.cat(rows, self.dims["ep"]) if self.dims["ep"] is not None else rows[0]
+
+
+class Stack:
+    """A stacked leaf of a dp group's view whose layers are made on demand:
+    ``stack[i]`` is layer i as a tensor on the leader or a ``Slices``,
+    gathered over dp when the leaf is dp-sharded (FSDP). ``layer`` indexes it
+    inside the checkpointed body, so one layer's gathered copy lives at a
+    time and the recompute gathers it again."""
+
+    def __init__(self, make, shape, detached: bool = False):
+        self._make, self.shape, self._detached = make, torch.Size(shape), detached
+
+    def __getitem__(self, i: int):
+        out = self._make(i)
+        return out.detach() if self._detached else out
+
+    def detach(self) -> "Stack":
+        return Stack(self._make, self.shape, True)
+
+
+class Parts:
+    """An activation split over a dp group's tp ranks: ``parts[j]`` on
+    ``devices[j]`` (a column-parallel output, or a head group's attention)."""
+
+    def __init__(self, parts, devices, leader):
+        self.parts, self.devices, self.leader = list(parts), list(devices), leader
+
+
+def full(x: Any) -> Any:
+    """A ``Slices`` leaf or ``Parts`` activation whole on the group's leader
+    (column parts concatenate in rank order); anything else as it is."""
+    if isinstance(x, Slices):
+        return x.full()
+    if isinstance(x, Parts):
+        return torch.cat([p.to(x.leader) for p in x.parts], dim=-1)
+    return x
+
+
+def tp_map(fn: Callable[..., torch.Tensor], *xs: Any) -> Any:
+    """``fn`` per rank over ``Parts`` (all of ``xs`` split alike), or once."""
+    if not any(isinstance(x, Parts) for x in xs):
+        return fn(*xs)
+    xs = [x if isinstance(x, Parts) else None for x in xs]
+    if any(x is None for x in xs):
+        raise ValueError("tp_map over Parts and a whole tensor")
+    ref = xs[0]
+    return Parts([fn(*ps) for ps in zip(*(x.parts for x in xs))], ref.devices, ref.leader)
+
+
+def col_matmul(x: torch.Tensor, w: Any) -> Any:
+    """x [..., d_in] @ w [d_in, d_out]: per rank on its output columns when
+    ``w`` is split, else one product. ``x`` is in the compute dtype."""
+    if not isinstance(w, Slices):
+        return torch.matmul(x, w.to(x.dtype))
+    return Parts([torch.matmul(x.to(d), p.to(x.dtype)) for p, d in zip(w.parts, w.devices)], w.devices, w.leader)
+
+
+def col_dense(p: Params, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> Any:
+    """Column-parallel dense: each tp rank multiplies by its own output-column
+    slice of ``w`` and adds its slice of ``b``."""
+    if not isinstance(p["w"], Slices):
+        return dense(p, x, dtype)
+    dtype = dtype or compute_dtype(x.device)
+    y = col_matmul(x.to(dtype), p["w"])
+    b = p["b"]
+    if isinstance(b, Slices):
+        return Parts([yj + bj.to(dtype) for yj, bj in zip(y.parts, b.parts)], y.devices, y.leader)
+    width = y.parts[0].shape[-1]
+    return Parts([yj + b[j * width:(j + 1) * width].to(yj.device, dtype) for j, yj in enumerate(y.parts)],
+                 y.devices, y.leader)
+
+
+def row_matmul(x: Any, w: Any) -> torch.Tensor:
+    """x [..., d_in] @ w [d_in, d_out] for a row-split ``w``: each rank
+    multiplies its input slice (its ``Parts`` entry, or its feature block of
+    a whole ``x``) by its row slice, and the partial sums are added in rank
+    order on the group's leader. A replicated ``w`` takes ``x`` whole."""
+    if not isinstance(w, Slices):
+        x = full(x)
+        return torch.matmul(x, w.to(x.dtype))
+    if isinstance(x, Parts):
+        xs = x.parts
+    else:
+        blk = x.shape[-1] // len(w.parts)
+        xs = [x[..., j * blk:(j + 1) * blk] for j in range(len(w.parts))]
+    out = None
+    for xj, wj, dev in zip(xs, w.parts, w.devices):
+        xj = xj.to(dev)
+        part = torch.matmul(xj, wj.to(xj.dtype)).to(w.leader)
+        out = part if out is None else out + part
+    return out
+
+
+def row_dense(p: Params, x: Any, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Row-parallel dense; the replicated bias is added once, after the sum."""
+    dev = x.leader if isinstance(x, Parts) else x.device
+    dtype = dtype or compute_dtype(dev)
+    return row_matmul(tp_map(lambda t: t.to(dtype), x), p["w"]) + p["b"].to(dev, dtype)
+
+
+def _columns(x: Parts, start: int, width: int, device: torch.device) -> torch.Tensor:
+    """Columns [start, start + width) of a column-split activation, on
+    ``device``, gathered from the parts that hold them."""
+    c = x.parts[0].shape[-1]
+    pieces = []
+    while width > 0:
+        j, off = divmod(start, c)
+        n = min(width, c - off)
+        pieces.append(x.parts[j][..., off:off + n].to(device))
+        start, width = start + n, width - n
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=-1)
+
+
+def head_attention(qkv: Any, d_model: int, n_heads: int, causal: bool = False) -> Any:
+    """Multi-head attention of a fused ``[q | k | v]`` projection. Split over
+    tp its columns are contiguous, so rank 0 may hold all of q and part of k:
+    each rank gathers its head group's q, k and v columns (H/tp heads) and
+    attends over them, and its output is the row slice of the output
+    projection that it multiplies. A head count tp does not divide is
+    attended whole on the group's leader."""
+    from distributedvolunteercomputing_tpu_torch.ops.attention import multi_head_attention
+
+    if not isinstance(qkv, Parts):
+        q, k, v = qkv.split(d_model, dim=-1)
+        return multi_head_attention(q, k, v, n_heads, causal=causal)
+    tp = len(qkv.parts)
+    if n_heads % tp:
+        q, k, v = full(qkv).split(d_model, dim=-1)
+        return multi_head_attention(q, k, v, n_heads, causal=causal)
+    width = d_model // tp
+    outs = []
+    for r, dev in enumerate(qkv.devices):
+        q, k, v = (_columns(qkv, s * d_model + r * width, width, dev) for s in range(3))
+        outs.append(multi_head_attention(q, k, v, n_heads // tp, causal=causal))
+    return Parts(outs, qkv.devices, qkv.leader)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, scale: float = 0.02) -> torch.Tensor:
@@ -89,14 +261,27 @@ def softmax_xent(
     logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Mean cross-entropy; ``labels`` are int ids; optional 0/1 mask."""
+    nll = _token_nll(logits, labels)
+    if mask is not None:
+        total, count = _nll_sums(nll, mask)
+        return total / torch.clamp(count, min=1.0)
+    return nll.mean()
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token cross-entropy, in f32."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
-    if mask is not None:
-        mask = mask.float()
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll.mean()
+    return logz - gold
+
+
+def _nll_sums(nll: torch.Tensor, mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the (masked) nll, the token count)."""
+    if mask is None:
+        return nll.sum(), nll.new_tensor(float(nll.numel()))
+    mask = mask.float()
+    return (nll * mask).sum(), mask.sum()
 
 
 def cast(tree: Any, dtype: Optional[torch.dtype]) -> Any:
@@ -124,21 +309,26 @@ def stacked_init(
     return tree_unflatten(treedef, stacks)
 
 
-def layer(blocks: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked tree (views; gradients flow to the stack)."""
+def layer(blocks: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked tree (views; gradients flow to the stack), or
+    of each tree of a list (one per dp group)."""
+    if isinstance(blocks, list):
+        return [layer(b, i) for b in blocks]
     return tree_map(lambda x: x[i], blocks)
 
 
-def _run_layer(body, blocks: Params, i: int, x: torch.Tensor) -> torch.Tensor:
+def _run_layer(body, blocks: Any, i: int, x: Any) -> Any:
     return body(layer(blocks, i), x)
 
 
-def scan_blocks(body, blocks: Params, x: torch.Tensor, remat: bool = True) -> torch.Tensor:
+def scan_blocks(body, blocks: Any, x: Any, remat: bool = True) -> Any:
     """Run ``x`` through the stacked ``blocks`` in order; ``body`` is
     ``(layer_params, x) -> x``. With ``remat`` each layer is checkpointed and
     recomputed in backward, keeping one layer's activations alive, as the
-    reference's ``jax.checkpoint`` per scan step does."""
-    n = int(tree_leaves(blocks)[0].shape[0])
+    reference's ``jax.checkpoint`` per scan step does. The carry ``x`` may be
+    a tuple (MoE's ``(x, aux)``), and ``blocks`` a list of trees whose layer
+    ``i`` the body gets as a list."""
+    n = int(tree_leaves(blocks[0] if isinstance(blocks, list) else blocks)[0].shape[0])
     for i in range(n):
         if remat:
             x = checkpoint(_run_layer, body, blocks, i, x, use_reentrant=False)
@@ -183,10 +373,7 @@ def project_vocab(x: torch.Tensor, head: torch.Tensor, head_layout: str) -> torc
 
 
 def _chunk_nll(xc, lc, head, head_layout):
-    logits = project_vocab(xc, head, head_layout)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
-    return logz - gold
+    return _token_nll(project_vocab(xc, head, head_layout), lc)
 
 
 def lm_xent_chunked(
@@ -196,32 +383,48 @@ def lm_xent_chunked(
     mask: Optional[torch.Tensor] = None,
     chunk: int = 128,
     head_layout: str = "vd",
-) -> torch.Tensor:
+    sums: bool = False,
+) -> Any:
     """Mean LM cross-entropy WITHOUT building the [B, T, V] f32 logits.
 
     Loops over T in ``chunk``-sized slices, each checkpointed, so peak memory
     is one [B, chunk, V] buffer and backward recomputes each chunk's logits.
     ``head`` is [V, d] (``"vd"``, tied embeddings) or [d, V] (``"dv"``).
+    ``sums``: return (sum of the (masked) nll, the token count) instead, for
+    a mean over several dp groups' shares.
     """
     t = x.shape[1]
     if t % chunk != 0:
         chunk = t  # tiny configs: single chunk, same math
     n = t // chunk
     if n <= 1:
-        return softmax_xent(project_vocab(x, head, head_layout), labels, mask)
-    nll_sum = x.new_zeros((), dtype=torch.float32)
-    denom = x.new_zeros((), dtype=torch.float32)
-    for i in range(n):
-        sl = slice(i * chunk, (i + 1) * chunk)
-        nll = checkpoint(_chunk_nll, x[:, sl], labels[:, sl], head, head_layout, use_reentrant=False)
-        if mask is not None:
-            mc = mask[:, sl].float()
-            nll_sum = nll_sum + (nll * mc).sum()
-            denom = denom + mc.sum()
-        else:
-            nll_sum = nll_sum + nll.sum()
-            denom = denom + nll.numel()
+        nll_sum, denom = _nll_sums(_token_nll(project_vocab(x, head, head_layout), labels), mask)
+    else:
+        nll_sum = denom = 0.0
+        for i in range(n):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            nll = checkpoint(_chunk_nll, x[:, sl], labels[:, sl], head, head_layout, use_reentrant=False)
+            s, c = _nll_sums(nll, None if mask is None else mask[:, sl])
+            nll_sum, denom = nll_sum + s, denom + c
+    if sums:
+        return nll_sum, denom
     return nll_sum / torch.clamp(denom, min=1.0)
+
+
+class CoupledLoss:
+    """A model's ``loss_fn(params, batch, rng, cfg)`` bound to its config and
+    marked ``dp_coupled``: the sharded step calls it ONCE with lists (one
+    view and one batch share per dp group), because its result is not the
+    mean of per-group losses (BERT's masked mean, MoE's global capacity and
+    aux loss). Called with one tree and one batch it is the plain loss."""
+
+    dp_coupled = True
+
+    def __init__(self, fn: Callable[..., Any], cfg: Any):
+        self.fn, self.cfg = fn, cfg
+
+    def __call__(self, params: Any, batch: Any, rng: torch.Generator):
+        return self.fn(params, batch, rng, self.cfg)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,6 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from distributedvolunteercomputing_tpu_torch.models import common
-from distributedvolunteercomputing_tpu_torch.ops.attention import multi_head_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,12 +64,19 @@ def init(gen: torch.Generator, cfg: GPT2Config, dtype: Optional[torch.dtype] = N
     }
 
 
-def _block(p: common.Params, x: torch.Tensor, cfg: GPT2Config) -> torch.Tensor:
+def attn_block(p: common.Params, x: torch.Tensor, cfg: GPT2Config) -> torch.Tensor:
+    """x + the causal self-attention of the pre-LN block (shared with the
+    MoE model). Under a mesh qkv is column-parallel, each tp rank attends
+    over its head group, and attn_out is row-parallel (``models/common``)."""
     h = common.layernorm(p["ln1"], x)
-    q, k, v = common.dense(p["qkv"], h).split(cfg.d_model, dim=-1)
-    x = x + common.dense(p["attn_out"], multi_head_attention(q, k, v, cfg.n_heads, causal=True))
+    attn = common.head_attention(common.col_dense(p["qkv"], h), cfg.d_model, cfg.n_heads, causal=True)
+    return x + common.row_dense(p["attn_out"], attn)
+
+
+def _block(p: common.Params, x: torch.Tensor, cfg: GPT2Config) -> torch.Tensor:
+    x = attn_block(p, x, cfg)
     h = common.layernorm(p["ln2"], x)
-    return x + common.dense(p["mlp_out"], common.gelu(common.dense(p["mlp_in"], h)))
+    return x + common.row_dense(p["mlp_out"], common.tp_map(common.gelu, common.col_dense(p["mlp_in"], h)))
 
 
 def embed(params: common.Params, tokens: torch.Tensor, cfg: GPT2Config) -> torch.Tensor:

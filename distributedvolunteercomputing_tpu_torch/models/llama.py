@@ -97,25 +97,46 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return x.repeat_interleave(n_rep, dim=1)
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int, n_kv: int) -> torch.Tensor:
+    qh = rope(split_heads(q, n_heads))
+    kh = rope(split_heads(k, n_kv))
+    vh = split_heads(v, n_kv)
+    n_rep = n_heads // n_kv
+    return merge_heads(attention_core(qh, _repeat_kv(kh, n_rep), _repeat_kv(vh, n_rep), causal=True))
+
+
+def _add_cols(x, delta: torch.Tensor):
+    """x + delta, where x may be split over tp by columns (``Parts``)."""
+    if not isinstance(x, common.Parts):
+        return x + delta
+    w = x.parts[0].shape[-1]
+    return common.Parts([xj + delta[..., j * w:(j + 1) * w].to(xj.device) for j, xj in enumerate(x.parts)],
+                        x.devices, x.leader)
+
+
 def _block(p: common.Params, lp: Optional[common.Params], x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    dtype = x.dtype
+    # wq/wk/wv are column-parallel under a mesh: when tp divides both head
+    # counts each rank's columns are whole heads, and it attends over its
+    # head group; otherwise q, k and v are gathered and attended whole on the
+    # group's leader. wo and w_down are row-parallel (models/common.py).
     h = common.rmsnorm(p["ln_attn"], x)
-    q = h @ p["wq"].to(dtype)
-    k = h @ p["wk"].to(dtype)
-    v = h @ p["wv"].to(dtype)
+    q = common.col_matmul(h, p["wq"])
+    k = common.col_matmul(h, p["wk"])
+    v = common.col_matmul(h, p["wv"])
     if lp is not None:
-        q = q + lora_delta(lp["q"], h, cfg.lora_alpha, cfg.lora_rank)
-        v = v + lora_delta(lp["v"], h, cfg.lora_alpha, cfg.lora_rank)
-    qh = rope(split_heads(q, cfg.n_heads))
-    kh = rope(split_heads(k, cfg.n_kv_heads))
-    vh = split_heads(v, cfg.n_kv_heads)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    attn = attention_core(qh, _repeat_kv(kh, n_rep), _repeat_kv(vh, n_rep), causal=True)
-    x = x + merge_heads(attn) @ p["wo"].to(dtype)
+        q = _add_cols(q, lora_delta(lp["q"], h, cfg.lora_alpha, cfg.lora_rank))
+        v = _add_cols(v, lora_delta(lp["v"], h, cfg.lora_alpha, cfg.lora_rank))
+    split = all(isinstance(t, common.Parts) for t in (q, k, v))
+    tp = len(q.parts) if split else 1
+    if split and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0:
+        attn = common.tp_map(lambda qj, kj, vj: _attend(qj, kj, vj, cfg.n_heads // tp, cfg.n_kv_heads // tp), q, k, v)
+    else:
+        attn = _attend(common.full(q), common.full(k), common.full(v), cfg.n_heads, cfg.n_kv_heads)
+    x = x + common.row_matmul(attn, p["wo"])
     h = common.rmsnorm(p["ln_mlp"], x)
-    gate = F.silu(h @ p["w_gate"].to(dtype))
-    up = h @ p["w_up"].to(dtype)
-    return x + (gate * up) @ p["w_down"].to(dtype)
+    gate = common.tp_map(F.silu, common.col_matmul(h, p["w_gate"]))
+    up = common.col_matmul(h, p["w_up"])
+    return x + common.row_matmul(common.tp_map(lambda g, u: g * u, gate, up), p["w_down"])
 
 
 def _lora_body(pl: common.Params, h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
@@ -140,14 +161,14 @@ def _trunk(params: common.Params, tokens: torch.Tensor, cfg: LlamaConfig):
 
 def forward(params: common.Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     x, base = _trunk(params, tokens, cfg)
-    return (x @ base["lm_head"].to(x.dtype)).float()
+    return (x @ common.full(base["lm_head"]).to(x.dtype)).float()
 
 
 def loss_fn(
     params: common.Params, batch: Dict[str, torch.Tensor], rng: torch.Generator, cfg: LlamaConfig
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     x, base = _trunk(params, batch["tokens"], cfg)
-    loss = common.lm_xent_chunked(x, base["lm_head"], batch["targets"], head_layout="dv")
+    loss = common.lm_xent_chunked(x, common.full(base["lm_head"]), batch["targets"], head_layout="dv")
     return loss, {"loss": loss}
 
 

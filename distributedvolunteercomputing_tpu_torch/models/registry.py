@@ -8,8 +8,7 @@ Each bundle closes over its config and exposes:
     avg_select(params) / avg_merge(params, averaged) -> the averaged subtree
 
 ``avg_select`` returns the live tensors of the subtree (no copy): the
-trainer writes merged payloads into them in place. ``gpt2_moe`` is not
-ported yet and raises ``KeyError``.
+trainer writes merged payloads into them in place.
 """
 
 from __future__ import annotations
@@ -21,10 +20,6 @@ import torch
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
-
-# The JAX package's expert-parallel model, ported with its sharding slice.
-_NOT_PORTED = ("gpt2_moe",)
-
 
 def _identity_select(params: Any) -> Any:
     return params
@@ -92,7 +87,7 @@ def _vit(**overrides: Any) -> ModelBundle:
 
 
 def _bert(**overrides: Any) -> ModelBundle:
-    from distributedvolunteercomputing_tpu_torch.models import bert
+    from distributedvolunteercomputing_tpu_torch.models import bert, common
     from distributedvolunteercomputing_tpu_torch.training import data
 
     cfg = dataclasses.replace(bert.BertConfig(), **overrides)
@@ -100,7 +95,8 @@ def _bert(**overrides: Any) -> ModelBundle:
         name="bert_mlm",
         config=cfg,
         init=lambda gen, dtype=None: bert.init(gen, cfg, dtype),
-        loss_fn=lambda p, b, rng: bert.loss_fn(p, b, rng, cfg),
+        # The masked mean is over the whole batch: one call for every dp group.
+        loss_fn=common.CoupledLoss(bert.loss_fn, cfg),
         make_batch=lambda gen, bs: data.synthetic_mlm_batch(
             gen, bs, seq_len=cfg.max_len, vocab=cfg.vocab, mask_id=bert.MASK_ID
         ),
@@ -139,6 +135,22 @@ def _gpt2(preset: str, **overrides: Any) -> ModelBundle:
     )
 
 
+def _gpt2_moe(**overrides: Any) -> ModelBundle:
+    from distributedvolunteercomputing_tpu_torch.models import common, moe
+    from distributedvolunteercomputing_tpu_torch.training import data
+
+    cfg = dataclasses.replace(moe.GPT2MoEConfig(), **overrides)
+    return ModelBundle(
+        name="gpt2_moe",
+        config=cfg,
+        init=lambda gen, dtype=None: moe.init(gen, cfg, dtype),
+        # A sharded step runs every dp group in one call: capacity, queue
+        # order and the aux loss are over the whole batch.
+        loss_fn=common.CoupledLoss(moe.loss_fn, cfg),
+        make_batch=lambda gen, bs: data.synthetic_lm_batch(gen, bs, seq_len=cfg.max_len, vocab=cfg.vocab),
+    )
+
+
 _REGISTRY: Dict[str, Callable[..., ModelBundle]] = {
     "mnist_mlp": _mlp,
     "cifar10_resnet18": _resnet18,
@@ -148,6 +160,7 @@ _REGISTRY: Dict[str, Callable[..., ModelBundle]] = {
     "gpt2_small": lambda **kw: _gpt2("small", **kw),
     "gpt2_medium": lambda **kw: _gpt2("medium", **kw),
     "gpt2_large": lambda **kw: _gpt2("large", **kw),
+    "gpt2_moe": _gpt2_moe,
 }
 
 
@@ -156,8 +169,6 @@ def ported_models() -> list:
 
 
 def get_model(name: str, **overrides: Any) -> ModelBundle:
-    if name in _NOT_PORTED:
-        raise KeyError(f"model {name!r} is not ported to PyTorch yet; ported: {sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name](**overrides)

@@ -15,7 +15,6 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from distributedvolunteercomputing_tpu_torch.models import common
-from distributedvolunteercomputing_tpu_torch.ops.attention import multi_head_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,11 +74,13 @@ def _patchify(x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
 
 def _block(p: common.Params, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     # Pre-LN: residuals stay un-normalized.
+    # Tensor-parallel under a mesh (models/common.py); ViT-Tiny's 3 heads
+    # attend whole on the group's leader at tp=2.
     h = common.layernorm(p["ln1"], x)
-    q, k, v = common.dense(p["qkv"], h).split(cfg.d_model, dim=-1)
-    x = x + common.dense(p["attn_out"], multi_head_attention(q, k, v, cfg.n_heads))
+    x = x + common.row_dense(p["attn_out"], common.head_attention(common.col_dense(p["qkv"], h), cfg.d_model,
+                                                                  cfg.n_heads))
     h = common.layernorm(p["ln2"], x)
-    return x + common.dense(p["mlp_out"], common.gelu(common.dense(p["mlp_in"], h)))
+    return x + common.row_dense(p["mlp_out"], common.tp_map(common.gelu, common.col_dense(p["mlp_in"], h)))
 
 
 def forward(params: common.Params, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:

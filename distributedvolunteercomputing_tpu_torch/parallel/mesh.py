@@ -10,8 +10,8 @@ One entry is one logical rank. An explicit ``devices`` list may name a card
 more than once: the ranks then share it, each with its own buffers (and, in
 the codec, its own CUDA stream). That is the port's counterpart of the
 reference's virtual CPU devices, and how a one-card machine runs a two-rank
-mesh. ``shard_map_manual`` is not ported: the port's only parallel step is
-data-parallel (``parallel/train_step.py``).
+mesh. ``shard_map_manual`` is not ported: the port's sharded step places
+and moves slices itself (``parallel/train_step.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +45,14 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({mesh_shape(self)}, {[str(d) for d in self.flat()]})"
+
+    # ``with mesh:`` as the reference's Mesh allows; the port places
+    # explicitly, so the block sets nothing.
+    def __enter__(self) -> "Mesh":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
 
 
 def make_mesh(

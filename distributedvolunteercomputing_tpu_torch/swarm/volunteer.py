@@ -35,7 +35,7 @@ resilience layer and controller, rotating group schedules
 (``group_size``, ``group_rotation_s``) and their zone hierarchy (``zone``,
 ``cross_zone_every_k``), zone-sharded training (``zone_shards``: a
 ``ShardManager`` holds this volunteer's shards and scopes its groups), a
-local data-parallel mesh, the coordinator and
+local mesh over dp, tp and ep with ``fsdp``, the coordinator and
 control plane, checkpoints, state sync and the reference's fault-injection
 hooks (read from the environment, test-only):
 ``DVC_CHAOS_CONTRIB_SCALE=<x>`` contributes the real tree scaled by x;
@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import math
 import os
 import signal
 import threading
@@ -60,11 +61,12 @@ import uuid
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
+import torch
 
 from distributedvolunteercomputing_tpu_torch.models import get_model
 from distributedvolunteercomputing_tpu_torch.ops import flash_attention
 from distributedvolunteercomputing_tpu_torch.ops import mesh_codec as mesh_codec_mod
-from distributedvolunteercomputing_tpu_torch.parallel.mesh import Mesh, make_mesh, parse_mesh_spec
+from distributedvolunteercomputing_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_shape, parse_mesh_spec
 from distributedvolunteercomputing_tpu_torch.swarm.averager import make_averager
 from distributedvolunteercomputing_tpu_torch.swarm.dht import DHTNode
 from distributedvolunteercomputing_tpu_torch.swarm.matchmaking import GroupSchedule
@@ -83,7 +85,7 @@ PORTED = (
     "averaging none|sync|gossip|butterfly|byzantine, wire f32|bf16|q8|topk|powersgd|sign, "
     "average_what params|grads, the step and wall-clock cadences, overlap, steps_per_call, "
     "the outer optimizer, .npz data, eval, robust methods, the resilience layer and "
-    "controller, group schedules and zones, zone sharding, a dp mesh, the coordinator "
+    "controller, group schedules and zones, zone sharding, a dp/tp/ep mesh and fsdp, the coordinator "
     "and control plane, checkpoints, state sync, telemetry, health probe and watchdog"
 )
 
@@ -93,7 +95,6 @@ DEFAULT_BUTTERFLY_INTERVAL_S = 20.0
 # The reference's options that later slices carry: field -> (default, what).
 # Set away from its default, each raises NotImplementedError.
 LATER_SLICES: Dict[str, tuple] = {
-    "fsdp": (False, "fsdp"),
     "seq_sharded": (False, "sequence parallelism"),
     "sp_impl": ("ring", "sequence parallelism"),
 }
@@ -173,9 +174,12 @@ class VolunteerConfig:
     outer_optimizer: str = "none"  # none | nesterov
     outer_lr: float = 0.7
     outer_momentum: float = 0.9
-    # Local mesh: the reference's "dp=N" spec over the first N visible cards
-    # (dp only), or a port ``Mesh`` (whose ranks may share a card); "" = one
-    # device. The swarm still sees one volunteer either way.
+    # Local mesh: the reference's "dp=2,tp=2"-style spec over the first
+    # visible cards, or over the CPU named once per rank when ``device`` is
+    # the CPU (dp, tp and ep; sp and pp are not ported), or a port ``Mesh``
+    # (whose ranks may share a card); "" = one device. The swarm
+    # still sees one volunteer either way. ``fsdp`` shards params and
+    # optimizer over the mesh's dp axis (ZeRO-3).
     mesh: Union[str, Mesh] = ""
     # The swarm data path's backend: "auto" (the card's kernels on a card,
     # host numpy on the CPU), "mesh" (the card's kernels), "host".
@@ -299,10 +303,13 @@ class VolunteerConfig:
             raise ValueError(f"metrics_port must be in [0, 65535] (0 = off), got {self.metrics_port}")
         if self.target_mode not in ("stop", "record"):
             raise ValueError(f"unknown target_mode {self.target_mode!r}")
-        if isinstance(self.mesh, str) and self.mesh:
-            axes = parse_mesh_spec(self.mesh)
-            if any(v > 1 for k, v in axes.items() if k != "dp"):
-                raise NotImplementedError(f"mesh {self.mesh!r}: axes other than dp are not ported yet")
+        if isinstance(self.mesh, Mesh) or self.mesh:
+            axes = mesh_shape(self.mesh) if isinstance(self.mesh, Mesh) else parse_mesh_spec(self.mesh)
+            if any(v > 1 for k, v in axes.items() if k not in ("dp", "tp", "ep")):
+                raise NotImplementedError(
+                    f"mesh {self.mesh!r}: the sp and pp axes (sequence parallelism, the pipeline) "
+                    "are not ported yet; ported: dp, tp, ep"
+                )
         if self.mesh_codec not in _CODEC_BACKENDS:
             raise ValueError(f"unknown mesh codec {self.mesh_codec!r}")
         if self.mesh_collective not in ("auto", "ring", "off"):
@@ -404,6 +411,14 @@ def _parse_addrs(spec: Optional[str]) -> list:
             raise ValueError(f"bad coordinator address {part!r} in {spec!r}: expected host:port")
         out.append((host, int(port)))
     return out
+
+
+def _spec_mesh(spec: str, device: DeviceLike) -> Mesh:
+    """A ``--mesh`` spec over the first visible cards, or over the CPU named
+    once per rank when ``device`` asks for the CPU."""
+    axes = parse_mesh_spec(spec)
+    cpu = device is not None and torch.device(device).type == "cpu"
+    return make_mesh(**axes, devices=[torch.device("cpu")] * math.prod(axes.values()) if cpu else None)
 
 
 class Volunteer:
@@ -612,7 +627,7 @@ class Volunteer:
                 # An independent shuffle of the same file: eval never
                 # perturbs the training order.
                 eval_data = npz_batch_iter(cfg.data_path, cfg.batch_size, seed=data_seed ^ 0x5EED)
-        mesh = cfg.mesh if isinstance(cfg.mesh, Mesh) else make_mesh(**parse_mesh_spec(cfg.mesh)) if cfg.mesh else None
+        mesh = cfg.mesh if isinstance(cfg.mesh, Mesh) else _spec_mesh(cfg.mesh, cfg.device) if cfg.mesh else None
         # The averager resolves the process default lazily, so configuring
         # here covers the averager built above.
         codec = mesh_codec_mod.configure(
@@ -639,6 +654,7 @@ class Volunteer:
             volunteer_id=cfg.peer_id,
             device=cfg.device,
             mesh=mesh,
+            fsdp=cfg.fsdp,
             data=data,
             averager=self._averager_callback if self.averager is not None else None,
             average_what=cfg.average_what,

@@ -14,8 +14,10 @@ Layout, as the reference's: ``<ckpt_dir>/step_N/`` per snapshot, here
 holding one ``state.pt`` of CPU tensors, with the optional ``.outer.npz``
 and ``.wire.npz`` sidecars beside the directory. A snapshot is written into
 a temporary directory whose name ``latest_step`` ignores and renamed into
-place, so a reader never sees a torn one. A mesh trainer saves rank 0's
-replica (the replicas are identical) and restores into every replica.
+place, so a reader never sees a torn one. A mesh trainer's snapshot holds
+each leaf assembled from its slices (the same file a one-rank trainer
+writes), and its restore writes each rank's slice of the host trees
+straight into the live tensors, never building the whole state on one rank.
 
 A zone-sharded volunteer also snapshots the shard slices it owns
 (``save_shard_snapshot``: one ``.npy`` per shard and a ``meta.json``, as the
@@ -35,6 +37,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from distributedvolunteercomputing_tpu_torch.parallel.sharding import ShardedTensor
 from distributedvolunteercomputing_tpu_torch.utils.logging import errstr, get_logger
 from distributedvolunteercomputing_tpu_torch.utils.pytree import torch_dtype, tree_leaves
 
@@ -47,7 +50,10 @@ STATE_FILE = "state.pt"
 def _to_host(obj: Any) -> Any:
     """A host COPY of a tree of tensors (dicts, lists, scalars). Never a
     view: on the CPU a view aliases the live tensor the next step updates
-    in place, and the writer thread would serialize a moving target."""
+    in place, and the writer thread would serialize a moving target. A
+    mesh leaf is assembled from its slices."""
+    if isinstance(obj, ShardedTensor):
+        return obj.full("cpu")
     if isinstance(obj, torch.Tensor):
         return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
@@ -68,13 +74,17 @@ def _cast_floating(obj: Any, dtype: torch.dtype) -> Any:
     return obj
 
 
+def _sharded(trainer) -> bool:
+    return getattr(trainer, "mesh", None) is not None
+
+
 def _state_to_host(trainer) -> dict:
-    state = trainer._replicas[0]  # a mesh trainer's replicas are identical
+    state = trainer.state
     return {
         "params": _to_host(state.params),
         "opt_state": _to_host(state.opt_state),
         "step": int(state.step),
-        "rng": state.rng.get_state(),  # already a CPU copy
+        "rng": state.rng.get_state(),  # already a CPU copy; rank 0's on a mesh
     }
 
 
@@ -387,6 +397,41 @@ def _copy_into(dst: Any, src: Any, what: str, device: Optional[torch.device] = N
         raise TypeError(f"checkpoint {what}: cannot restore into {type(dst)}")
 
 
+def _restore_sharded(state, params: Any, opt_state: Any, step: int, rng_state: torch.Tensor) -> None:
+    """Host trees onto a ``ShardedTrainState``: each rank's slice of each
+    leaf written into its tensor, moments made on their placement where
+    the live state has none yet."""
+    from distributedvolunteercomputing_tpu_torch.utils.pytree import tree_flatten
+
+    live, live_def = tree_flatten(state.params)
+    host, host_def = tree_flatten(params)
+    if live_def != host_def:
+        raise ValueError("checkpoint params: keys differ from the live state")
+    for dst, src in zip(live, host):
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"checkpoint params: {tuple(src.shape)} != live {tuple(dst.shape)}")
+        dst.write(src)
+    if set(opt_state) != set(state.opt_state):
+        raise ValueError("checkpoint opt_state: keys differ from the live state")
+    for name, v in opt_state.items():
+        if not isinstance(v, (list, tuple)):
+            state.opt_state[name] = v
+            continue
+        slots = state.opt_state[name]
+        if len(v) != len(slots):
+            raise ValueError(f"checkpoint opt_state/{name}: length differs from the live state")
+        for i, (m, sh, leaf) in enumerate(zip(v, state.opt_shardings, live)):
+            if m is None:
+                slots[i] = None
+            elif slots[i] is None:
+                slots[i] = ShardedTensor.place(sh, m, leaf.dtype)
+            else:
+                slots[i].write(m)
+    state.step = step
+    for rng in state.rngs:
+        rng.set_state(rng_state)
+
+
 def maybe_restore(trainer, ckpt_dir: str) -> bool:
     """Load the newest snapshot into the trainer, if any. Returns True if restored."""
     step = latest_step(ckpt_dir)
@@ -394,7 +439,9 @@ def maybe_restore(trainer, ckpt_dir: str) -> bool:
         return False
     t0 = time.perf_counter()
     path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step}"))
-    restored = torch.load(os.path.join(path, STATE_FILE), map_location=trainer.device, weights_only=True)
+    # A mesh trainer reads the host trees and places each rank's slice.
+    restored = torch.load(os.path.join(path, STATE_FILE), map_location="cpu" if _sharded(trainer) else trainer.device,
+                          weights_only=True)
     params, opt_state = restored["params"], restored["opt_state"]
     if getattr(trainer, "param_dtype", None):
         # Re-apply the CONFIGURED dtype over whatever the snapshot holds:
@@ -405,13 +452,14 @@ def maybe_restore(trainer, ckpt_dir: str) -> bool:
         params, opt_state = _cast_floating(params, dt), _cast_floating(opt_state, dt)
     rng_state = restored["rng"].to("cpu")
     with torch.no_grad():
-        # Every replica of a mesh trainer (one without a mesh).
-        for replica in trainer._replicas:
-            _copy_into(replica.params, params, "params")
-            device = tree_leaves(replica.params)[0].device
-            _copy_into(replica.opt_state, opt_state, "opt_state", device)
-            replica.step = int(restored["step"])
-            replica.rng.set_state(rng_state)
+        if _sharded(trainer):
+            _restore_sharded(trainer.state, params, opt_state, int(restored["step"]), rng_state)
+        else:
+            state = trainer.state
+            _copy_into(state.params, params, "params")
+            _copy_into(state.opt_state, opt_state, "opt_state", tree_leaves(state.params)[0].device)
+            state.step = int(restored["step"])
+            state.rng.set_state(rng_state)
     _maybe_restore_outer_state(trainer, path)
     _maybe_restore_wire_state(trainer, path)
     # Refresh the cross-thread snapshot: the state-sync provider must

@@ -109,9 +109,20 @@ class Optimizer:
                 if g is not None and slots[i] is None:
                     slots[i] = torch.zeros_like(p)
 
-    @torch.no_grad()
     def apply(self, params: Any, grads: List[Optional[torch.Tensor]], state: Dict[str, Any]) -> None:
-        leaves = tree_leaves(params)
+        self.apply_leaves(tree_leaves(params), grads, state)
+
+    @torch.no_grad()
+    def apply_leaves(
+        self,
+        leaves: List[torch.Tensor],
+        grads: List[Optional[torch.Tensor]],
+        state: Dict[str, Any],
+        g_norm: Optional[torch.Tensor] = None,
+    ) -> None:
+        """``apply`` over a list of param tensors (a mesh rank's slices). The
+        clip uses ``g_norm`` when given (the sharded step's norm over the
+        whole tree), else the norm of ``grads``."""
         if self.name == "adamw" and self.weight_decay and any(g is None for g in grads):
             raise ValueError(
                 "adamw with weight_decay > 0 on a frozen leaf: optax would decay it; "
@@ -119,7 +130,7 @@ class Optimizer:
             )
         if self.grad_clip:
             # Selected on the device: no host sync per step.
-            g_norm = global_norm(grads)
+            g_norm = global_norm(grads) if g_norm is None else g_norm
             keep = g_norm < self.grad_clip
             grads = [
                 None if g is None else torch.where(keep, g, g / g_norm.to(g.dtype) * self.grad_clip)

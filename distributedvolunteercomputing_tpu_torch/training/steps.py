@@ -91,12 +91,31 @@ def apply_half(tx: Optimizer, state: TrainState, grads: List[torch.Tensor]) -> T
     return state
 
 
+def clone_state(state: TrainState) -> TrainState:
+    """A copy of the state that shares no tensor or generator with it."""
+
+    def copy(obj: Any) -> Any:
+        if isinstance(obj, torch.Tensor):
+            return obj.clone()
+        if isinstance(obj, dict):
+            return {k: copy(v) for k, v in obj.items()}
+        if isinstance(obj, list):
+            return [copy(v) for v in obj]
+        return obj
+
+    rng = torch.Generator(device=state.rng.device).set_state(state.rng.get_state())
+    return TrainState(copy(state.params), copy(state.opt_state), state.step, rng)
+
+
 def make_train_step(
-    loss_fn: LossFn, tx: Optimizer, accum_steps: int = 1
+    loss_fn: LossFn, tx: Optimizer, accum_steps: int = 1, donate: bool = True
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Metrics]]:
-    """``(state, batch) -> (state, metrics)``."""
+    """``(state, batch) -> (state, metrics)``; the state is updated in place
+    (the reference donating it), or with ``donate=False`` a copy is."""
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
+        if not donate:
+            state = clone_state(state)
         grads, metrics = grad_half(loss_fn, state, batch, accum_steps)
         return apply_half(tx, state, grads), metrics
 

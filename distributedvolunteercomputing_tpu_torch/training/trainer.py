@@ -6,9 +6,11 @@ point a params-mode round through an injected callback: every
 ``average_every`` steps, or, with ``average_interval_s``, each time the
 wall clock crosses a multiple of the interval. Blocking (the round's result replaces the params) or overlapped
 with the next steps (Moshpit merge ``averaged + (current - snapshot)``).
-With a ``mesh`` (``parallel/mesh.py``) the step is data-parallel over its dp
-ranks (``parallel/train_step.py``): the averager reads rank 0's params, and a
-merge writes the averaged params back to every rank.
+With a ``mesh`` (``parallel/mesh.py``) the step is sharded over its ranks
+(``parallel/train_step.py``: dp, tp and ep, and ``fsdp``): the host copy
+assembles each leaf from its slices, in sorted-key order, so the payload
+and its schema hash are a one-rank trainer's, and a merge or an adoption
+writes each rank's slice back in place.
 
 Concurrent readers (the state-sync provider and the gossip publisher, off
 the trainer thread) never touch ``state``: the step updates its tensors in
@@ -34,8 +36,9 @@ steps between cadence points as chunks of fused steps
 without touching the params. ``outer_optimizer="nesterov"`` applies a
 DiLoCo-style Nesterov step, on host numpy in payload space, to each
 params-mode round's average. ``DVC_PROFILE_DIR`` traces a window of steps
-with ``torch.profiler`` (a chrome trace). FSDP and the mesh axes other than
-dp come with later slices; the constructor does not accept them.
+with ``torch.profiler`` (a chrome trace). Sequence parallelism and the
+pipeline (the mesh's sp and pp axes) come with a later slice; the sharded
+step refuses them.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from distributedvolunteercomputing_tpu_torch.models.registry import Batch, ModelBundle
+from distributedvolunteercomputing_tpu_torch.parallel.sharding import ShardedTensor
 from distributedvolunteercomputing_tpu_torch.training.metrics import MetricsWriter
 from distributedvolunteercomputing_tpu_torch.training.optim import make_optimizer
 from distributedvolunteercomputing_tpu_torch.training.steps import (
@@ -135,9 +139,12 @@ class Trainer:
         # is dropped instead of merged (0 = no bound).
         overlap: bool = False,
         max_staleness: int = 0,
-        # The volunteer's local mesh (dp only): a full replica on each rank,
-        # the batch split over them. None = one device.
+        # The volunteer's local mesh: the state sharded over its ranks by the
+        # partition rules, the batch split over dp. None = one device.
         mesh: Optional[Any] = None,
+        # ZeRO-3 over the mesh's dp axis: params, grads and moments at 1/dp
+        # per rank (params mode only).
+        fsdp: bool = False,
         # Called after each host-visible step on the trainer thread (the
         # volunteer's checkpoint cadence). With steps_per_call > 1 it fires
         # only on chunk-final steps: a cadence inside the callback must be
@@ -191,6 +198,13 @@ class Trainer:
         # The reference turns on a persistent XLA compilation cache here
         # (enable_compile_cache); nothing is JIT-compiled in the port, so
         # there is nothing to cache.
+        if mesh is None and fsdp:
+            raise ValueError("fsdp/seq_sharded require a mesh (--mesh dp=...,tp=...)")
+        if fsdp and average_what == "grads":
+            # The split grad/apply steps gather the whole gradients on rank 0:
+            # per-step host grad averaging defeats ZeRO-3's purpose (the
+            # reference's check).
+            raise ValueError("fsdp is a params-mode feature; use average_what='params'")
         if mesh is not None:
             ranks = [resolve_device(d) for d in mesh.flat()]
             if device is not None and resolve_device(device).type != ranks[0].type:
@@ -199,6 +213,7 @@ class Trainer:
         else:
             self.device = resolve_device(device)
         self.mesh = mesh
+        self.fsdp = bool(fsdp)
         self.bundle = bundle
         self.batch_size = batch_size
         self.accum_steps = accum_steps
@@ -215,8 +230,6 @@ class Trainer:
         self.param_dtype = param_dtype
         step_rng = torch.Generator(device=self.device).manual_seed(seed)
         self.state = TrainState.create(params, self.tx, step_rng)
-        # Every replica the params live in (one without a mesh).
-        self._replicas = [self.state]
         self.average_what = average_what
         # Gradient mode splits the step so the gradients can cross the
         # averager between bwd and the optimizer; the fused step covers the
@@ -229,15 +242,17 @@ class Trainer:
         if mesh is not None:
             from distributedvolunteercomputing_tpu_torch.parallel import train_step as pts
 
-            self.state, _ = pts.shard_train_state(self.state, mesh)
-            self._replicas = self.state.replicas
+            self.state, _ = pts.shard_train_state(self.state, mesh, fsdp=fsdp)
+            del params
             if self._grads_mode:
                 self._grad_fn = pts.make_sharded_grad_step(bundle.loss_fn, mesh, accum_steps=accum_steps)
                 self._apply_fn = pts.make_sharded_apply_step(self.tx, mesh)
             else:
-                self._step_fn = pts.make_sharded_train_step(bundle.loss_fn, self.tx, mesh, accum_steps=accum_steps)
+                self._step_fn = pts.make_sharded_train_step(bundle.loss_fn, self.tx, mesh, accum_steps=accum_steps,
+                                                            fsdp=fsdp)
                 if multi:
-                    self._multi_fn = pts.make_sharded_multi_step(bundle.loss_fn, self.tx, mesh, accum_steps=accum_steps)
+                    self._multi_fn = pts.make_sharded_multi_step(bundle.loss_fn, self.tx, mesh,
+                                                                 accum_steps=accum_steps, fsdp=fsdp)
         elif self._grads_mode:
             self._grad_fn = make_grad_step(bundle.loss_fn, accum_steps=accum_steps)
             self._apply_fn = make_apply_step(self.tx)
@@ -343,8 +358,10 @@ class Trainer:
     @staticmethod
     def _host_tree(tree: Any) -> Any:
         """The tree as host f32 numpy leaves: one device-side concatenation
-        and ONE device-to-host copy (not one per leaf), then views."""
+        and ONE device-to-host copy (not one per leaf), then views. A sharded
+        leaf is assembled from its slices first."""
         leaves, treedef = tree_flatten(tree)
+        leaves = [x.full() if isinstance(x, ShardedTensor) else x for x in leaves]
         flat = torch.cat([x.detach().reshape(-1).to(torch.float32) for x in leaves]).cpu().numpy()
         out, off = [], 0
         for x in leaves:
@@ -385,16 +402,19 @@ class Trainer:
 
     def _write_params(self, payload: Any) -> None:
         """Copy a host tree of the ``avg_select`` subtree into the live
-        tensors of that subtree, in every replica, in place; the rest of the
-        params and the optimizer's moments keep their tensors."""
-        src_leaves, src_def = tree_flatten(payload)
+        tensors of that subtree, in place (each rank's slice of it under a
+        mesh); the rest of the params and the optimizer's moments keep their
+        tensors."""
+        src, src_def = tree_flatten(payload)
+        dst, dst_def = tree_flatten(self.bundle.avg_select(self.state.params))
+        if dst_def != src_def:
+            raise ValueError("payload tree differs from the params' averaged subtree")
         with torch.no_grad():
-            src = [torch.from_numpy(np.ascontiguousarray(v, np.float32)) for v in src_leaves]
-            for replica in self._replicas:
-                dst, dst_def = tree_flatten(self.bundle.avg_select(replica.params))
-                if dst_def != src_def:
-                    raise ValueError("payload tree differs from the params' averaged subtree")
-                for p, v in zip(dst, src):
+            for p, v in zip(dst, src):
+                v = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                if isinstance(p, ShardedTensor):
+                    p.write(v)
+                else:
                     p.copy_(v)
 
     def _swap_params(self, payload: Any, step_no: int) -> None:
@@ -414,8 +434,7 @@ class Trainer:
         or restored, and the averaging rounds re-sync them either way."""
         self._write_params(payload)
         if step is not None:
-            for replica in self._replicas:
-                replica.step = int(step)
+            self.state.step = int(step)
         self.mutation_counter += 1
         # The adopted params did not come from this trainer's anchor: the
         # outer optimizer's next round re-seeds (its first-round semantics).
@@ -425,15 +444,20 @@ class Trainer:
 
     def evaluate(self, n_batches: Optional[int] = None) -> float:
         """Mean held-out loss over ``n_batches`` (default ``eval_batches``)
-        without updating the params, on rank 0's replica under a mesh;
+        without updating the params, sharded as the step is under a mesh;
         ``accum_steps`` microbatches a batch as the step does. NaN when a
         finite stream ran out before the first batch."""
         if self._eval_fn is None:
-            self._eval_fn = make_eval_step(self.bundle.loss_fn)
+            if self.mesh is not None:
+                from distributedvolunteercomputing_tpu_torch.parallel.train_step import make_sharded_eval_step
+
+                self._eval_fn = make_sharded_eval_step(self.bundle.loss_fn, self.mesh)
+            else:
+                self._eval_fn = make_eval_step(self.bundle.loss_fn)
         n = self.eval_batches if n_batches is None else n_batches
         if n < 1:
             raise ValueError(f"evaluate() needs n_batches >= 1, got {n}")
-        params = self.state.params
+        params = self.state if self.mesh is not None else self.state.params
         total = 0.0
         done = 0
         for _ in range(n):
@@ -455,7 +479,10 @@ class Trainer:
                     break  # evaluate on what there was
             else:
                 batch = self.bundle.make_batch(self._eval_gen, self.batch_size)
-            batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
+            if self.mesh is None:
+                batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
+            else:
+                batch = {k: torch.as_tensor(v) for k, v in batch.items()}
             if self.accum_steps > 1:
                 micro = {k: v.chunk(self.accum_steps, dim=0) for k, v in batch.items()}
                 losses = [
@@ -578,7 +605,7 @@ class Trainer:
         subtree the loss did not reach ships as zeros, the reference's
         gradient there."""
         sel = tree_map(
-            lambda g, p: torch.zeros_like(p) if g is None else g,
+            lambda g, p: torch.zeros(p.shape, dtype=p.dtype, device=self.device) if g is None else g,
             self.bundle.avg_select(grads), self.bundle.avg_select(self.state.params),
         )
         payload = self._host_tree(sel)

@@ -57,7 +57,6 @@ import json
 
 # dest -> what it belongs to, for the flags whose slice is not ported yet.
 LATER_FLAGS = {
-    "fsdp": "fsdp",
     "seq_sharded": "sequence parallelism",
     "sp_impl": "sequence parallelism",
 }
@@ -205,8 +204,10 @@ def main() -> None:
                          "effective batch in less HBM")
     ap.add_argument("--mesh", default="",
                     help="device mesh spec over this volunteer's local "
-                         "cards, e.g. dp=2 (dp only is ported): the step runs "
-                         "data-parallel over them; empty = single device")
+                         "cards, e.g. dp=2,tp=2 or ep=2,tp=2 (dp, tp and ep "
+                         "are ported): the step is sharded over them by the "
+                         "partition rules (with --device cpu every rank is "
+                         "the CPU); empty = single device")
     ap.add_argument("--mesh-codec", default="auto", choices=("auto", "mesh", "host"),
                     help="swarm data-path backend: run the bf16 wire codec "
                          "and the leader's tile folds as CUDA kernels on the "
@@ -406,6 +407,7 @@ def main() -> None:
             batch_size=args.batch_size,
             accum_steps=args.accum_steps,
             mesh=args.mesh,
+            fsdp=args.fsdp,
             mesh_codec=args.mesh_codec,
             mesh_collective=args.mesh_collective,
             host_replica=args.host_replica,

@@ -40,22 +40,25 @@ def _trainer(seed=1, **kw):
     return Trainer(get_model("gpt2_small", **TINY), batch_size=2, optimizer="adamw", lr=1e-2, seed=seed, **kw)
 
 
-def _state_tensors(trainer):
-    """Every tensor of the train state in a fixed order, and the plain values."""
-    st = trainer._replicas[0]
-    tensors = tree_leaves(st.params) + list(st.opt_state["mu"]) + list(st.opt_state["nu"])
-    return tensors, (st.opt_state["count"], st.step, st.rng.get_state())
+def _state_tensors(trainer, rank=0):
+    """Every tensor of the train state in a fixed order, and the plain values:
+    the state's own, or one rank's slices of a mesh trainer's."""
+    st = trainer.state
+    if trainer.mesh is None:
+        tensors = tree_leaves(st.params) + list(st.opt_state["mu"]) + list(st.opt_state["nu"])
+        return tensors, (st.opt_state["count"], st.step, st.rng.get_state())
+    leaves = st.leaves() + list(st.opt_state["mu"]) + list(st.opt_state["nu"])
+    return [x.shards[rank] for x in leaves], (st.opt_state["count"], st.step, st.rngs[rank].get_state())
 
 
-def _assert_state_equal(a, b, replica_b=None):
+def _assert_state_equal(a, b, rank_b=0):
     ta, (ca, sa, ra) = _state_tensors(a)
-    st_b = replica_b if replica_b is not None else b._replicas[0]
-    tb = tree_leaves(st_b.params) + list(st_b.opt_state["mu"]) + list(st_b.opt_state["nu"])
+    tb, (cb, sb, rb) = _state_tensors(b, rank_b)
     assert len(ta) == len(tb)
     for x, y in zip(ta, tb):
         assert x.dtype == y.dtype and torch.equal(x, y.to(x.device))
-    assert (ca, sa) == (st_b.opt_state["count"], st_b.step)
-    assert torch.equal(ra, st_b.rng.get_state())
+    assert (ca, sa) == (cb, sb)
+    assert torch.equal(ra, rb)
 
 
 def test_save_then_restore_is_bit_equal(tmp_path):
@@ -179,14 +182,14 @@ def test_dp2_mesh_trainer_restores_into_both_replicas(tmp_path):
     ckpt.save(t1, str(tmp_path))
     t2 = _trainer(seed=5, mesh=mesh())
     assert ckpt.maybe_restore(t2, str(tmp_path))
-    assert len(t2.state.replicas) == 2
-    for replica in t2.state.replicas:
-        _assert_state_equal(t1, t2, replica_b=replica)
+    assert len(t2.mesh.flat()) == 2
+    for rank in range(2):
+        _assert_state_equal(t1, t2, rank_b=rank)
     # Both replicas step on from the same state.
     t1.run(steps=1, log_every=0)
     t2.run(steps=1, log_every=0)
-    for a, b in zip(tree_leaves(t2.state.replicas[0].params), tree_leaves(t2.state.replicas[1].params)):
-        assert torch.equal(a, b)
+    for leaf in t2.state.leaves():
+        assert torch.equal(leaf.shards[0], leaf.shards[1])
 
 
 @pytest.mark.parametrize("steps,every,final", [(4, 2, False), (3, 2, True)], ids=["already_saved", "final_save"])

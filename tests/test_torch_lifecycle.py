@@ -322,7 +322,7 @@ def _non_default(value):
 @pytest.mark.parametrize(
     "field,value",
     [(f, _non_default(d)) for f, (d, _) in vol_mod.LATER_SLICES.items()]
-    + [("mesh", "dp=1,tp=2")],
+    + [("mesh", "dp=1,sp=2"), ("mesh", "pp=2")],
 )
 def test_unported_config_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -420,7 +420,7 @@ def _later_flag_argv():
                 specs[dest] = [flag, "3"]
     assert set(specs) == set(later)
     return [specs[d] for d in sorted(specs)] + [
-        ["--model", "gpt2_moe"], ["--mesh", "dp=1,tp=2"],
+        ["--mesh", "sp=2"], ["--mesh", "pp=2"],
     ]
 
 

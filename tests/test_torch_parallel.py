@@ -28,6 +28,7 @@ from distributedvolunteercomputing_tpu_torch.models import get_model
 from distributedvolunteercomputing_tpu_torch.models.convert import params_from_jax
 from distributedvolunteercomputing_tpu_torch.parallel import mesh as pmesh
 from distributedvolunteercomputing_tpu_torch.parallel import train_step as pts
+from distributedvolunteercomputing_tpu_torch.parallel.sharding import ShardedTensor
 from distributedvolunteercomputing_tpu_torch.training.optim import make_optimizer
 from distributedvolunteercomputing_tpu_torch.training.steps import TrainState, make_train_step
 from distributedvolunteercomputing_tpu_torch.training.trainer import Trainer
@@ -45,7 +46,7 @@ def _assert_params_close(params, other, msg):
     qkv_b = params["blocks"]["qkv"]["b"]
     others = tree_leaves(other) if isinstance(other["wte"], torch.Tensor) else jax.tree_util.tree_leaves(other)
     for a, b in zip(tree_leaves(params), others):
-        x = a.numpy().copy()
+        x = (a.full() if isinstance(a, ShardedTensor) else a).numpy().copy()
         y = b.numpy().copy() if isinstance(b, torch.Tensor) else np.array(b)
         if a is qkv_b:
             np.testing.assert_allclose(x[:, key_bias], y[:, key_bias], atol=LR / 20, rtol=0, err_msg=f"{msg} key bias")
@@ -141,18 +142,21 @@ def test_dp_step_matches_reference_sharded_step(dp, inputs):
         np.testing.assert_allclose(float(m["loss"]), float(m1["loss"]), rtol=1e-5)
         _assert_params_close(state.params, jstate.params, f"dp={dp} step {i} vs reference")
         _assert_params_close(state.params, one.params, f"dp={dp} step {i} vs one rank")
-        for r in state.replicas[1:]:  # one update on identical grads: identical replicas
-            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(r.params), tree_leaves(state.params)))
+        for leaf in state.leaves():  # one update on identical grads: identical replicas
+            assert all(torch.equal(s, leaf.shards[0]) for s in leaf.shards[1:])
     assert state.step == 3 == int(jstate.step)
 
 
 def test_dp_only_and_batch_split():
+    # dp, tp and ep are ported (tests/test_torch_mesh_step.py); sequence
+    # parallelism and the pipeline still refuse.
     bundle = get_model("gpt2_small", **TINY)
     tx = make_optimizer("adamw", lr=LR)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pts.make_sharded_train_step(bundle.loss_fn, tx, pmesh.make_mesh(dp=2, tp=2, devices=CPU8))
+    for axes in (dict(dp=2, sp=2), dict(dp=2, pp=2)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            pts.make_sharded_train_step(bundle.loss_fn, tx, pmesh.make_mesh(**axes, devices=CPU8))
     mesh = pmesh.make_mesh(dp=2, devices=CPU8)
-    for kw in (dict(fsdp=True), dict(zero1=True), dict(seq_sharded_batch=True)):
+    for kw in (dict(seq_sharded_batch=True), dict(sp_impl="ulysses")):
         with pytest.raises(NotImplementedError, match="not ported"):
             pts.make_sharded_train_step(bundle.loss_fn, tx, mesh, **kw)
     with pytest.raises(ValueError, match="does not split"):
@@ -173,8 +177,8 @@ def test_trainer_on_a_mesh_merges_into_every_replica():
     trainer = Trainer(bundle, batch_size=BATCH, device="cpu", mesh=mesh, averager=averager, average_every=2)
     summary = trainer.run(steps=3)
     assert summary["steps"] == 3 and np.isfinite(summary["final_loss"]) and len(seen) == 1
-    for r in trainer.state.replicas:
-        assert all(torch.allclose(a, b) for a, b in zip(tree_leaves(r.params), tree_leaves(trainer.state.params)))
+    for leaf in trainer.state.leaves():
+        assert all(torch.allclose(s, leaf.shards[0]) for s in leaf.shards[1:])
     assert trainer.state.step == 3 and trainer.device == torch.device("cpu")
     with pytest.raises(ValueError, match="does not split"):
         Trainer(bundle, batch_size=3, device="cpu", mesh=mesh).run(steps=1)

@@ -127,14 +127,16 @@ def test_merges_match_reference(overlap):
 
 def test_trainer_refuses_what_is_not_ported():
     bundle = get_model("gpt2_small", **TINY)
-    with pytest.raises(TypeError):
+    # fsdp is ported, with the reference's check; sequence parallelism and
+    # the pipeline are not.
+    with pytest.raises(ValueError, match="require a mesh"):
         Trainer(bundle, batch_size=2, device="cpu", fsdp=True)
     with pytest.raises(TypeError):
         Trainer(bundle, batch_size=2, device="cpu", seq_sharded=True)
     with pytest.raises(NotImplementedError, match="not ported"):
-        VolunteerConfig(averaging="sync", fsdp=True)
+        VolunteerConfig(averaging="sync", seq_sharded=True)
     with pytest.raises(NotImplementedError, match="not ported"):
-        VolunteerConfig(averaging="sync", mesh="dp=1,tp=2")
+        VolunteerConfig(averaging="sync", mesh="dp=1,pp=2")
 
 
 def test_two_port_volunteers_train_and_average():

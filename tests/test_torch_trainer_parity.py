@@ -22,6 +22,7 @@ from distributedvolunteercomputing_tpu.training.trainer import Trainer as JaxTra
 from distributedvolunteercomputing_tpu.utils.pytree import flatten_to_buffer as jax_flatten
 from distributedvolunteercomputing_tpu_torch.models import get_model
 from distributedvolunteercomputing_tpu_torch.parallel.mesh import make_mesh
+from distributedvolunteercomputing_tpu_torch.parallel.sharding import ShardedTensor, assemble_tree
 from distributedvolunteercomputing_tpu_torch.training import checkpoint as ckpt
 from distributedvolunteercomputing_tpu_torch.training.data import npz_batch_iter
 from distributedvolunteercomputing_tpu_torch.training.trainer import Trainer
@@ -80,9 +81,12 @@ def _port_trainer(shared, **kw):
     t = Trainer(get_model("gpt2_small", **TINY), batch_size=2, optimizer="adamw", lr=LR, total_steps=STEPS,
                 device="cpu", **kw)
     with torch.no_grad():
-        for replica in t._replicas:
-            for p, v in zip(tree_leaves(replica.params), jax.tree_util.tree_leaves(shared["params0"])):
-                p.copy_(torch.from_numpy(np.array(v)))
+        for p, v in zip(tree_leaves(t.state.params), jax.tree_util.tree_leaves(shared["params0"])):
+            v = torch.from_numpy(np.array(v))
+            if isinstance(p, ShardedTensor):
+                p.write(v)  # every rank's slice
+            else:
+                p.copy_(v)
     return t
 
 
@@ -103,7 +107,7 @@ def _assert_close(got, want, key_bias, msg):
 def _flat(trainer, jax_side=False):
     if jax_side:
         return jax_flatten(_np(trainer.state.params))[0]
-    return flatten_to_buffer(trainer.state.params)[0]
+    return flatten_to_buffer(assemble_tree(trainer.state.params))[0]
 
 
 def _averager(kind, other, record):
@@ -164,8 +168,7 @@ def test_grads_mode_on_a_dp_mesh_matches_one_rank(shared):
     for a, b in zip(payloads["dp"], payloads["one"]):
         np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-5)
     _assert_close(_flat(dp), _flat(one), shared["key_bias"], "dp=2 vs one rank")
-    r0, r1 = dp._replicas
-    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(r0.params), tree_leaves(r1.params)))
+    assert all(torch.equal(*leaf.shards) for leaf in dp.state.leaves())
 
 
 def test_multi_step_matches_single_steps_and_reference(shared):
